@@ -1,0 +1,383 @@
+// ZIPPER's tiled gather on Hopper (sm_90a): the four tile kernels of
+// src/repro/kernels/tile_spmm/kernel.py, written again for a GPU.
+//
+// On the TPU each kernel is a sequential grid over tiles: the accumulator
+// lives in VMEM scratch, a FIRST flag zeroes it and a LAST flag flushes it to
+// the tile's partition, and the matrix unit takes dense blocks (a densified
+// adjacency or score block, or a (D, E) row selector built from the CSR row
+// pointers).  GPU blocks run in parallel and in no order, so that chain
+// becomes a loop inside the block.  Tiles are partition-major and the
+// wrapper turns part_id into partition runs part_ptr (P+1): the tiles of
+// partition p are [part_ptr[p], part_ptr[p+1]).
+//
+// Shared design.  One block of 8 warps owns one (partition, 4 output rows,
+// 128 output columns) piece of the (P, D, F) output and takes its rows one
+// at a time.  For a row, the 8 warps split the work — the dense kernels by
+// column stripes of the row, the CSR kernels by the partition's tiles — and
+// each warp keeps its own running state in registers: the accumulator over
+// its lane's 4 columns and, for the softmax, the running max m and sum l.
+// The block then merges the 8 states in shared memory and writes the row.
+// Blocks never share an output element: no atomics, no second pass.  A
+// partition with no tile writes zeros.  Only real edges cost work: a warp
+// finds them by ballot (nonzero adjacency, live score, or slot inside a row
+// run) and reads each edge's 128-wide value row, four rows in flight.
+// Everything is fp32 FMA on the CUDA cores; wgmma and TMA are later work.
+//
+// Each C entry point takes raw pointers, the sizes and the CUDA stream,
+// launches on that stream and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLaneCols = 4;                 // output columns per lane
+constexpr int kCols = 32 * kLaneCols;        // output columns per block
+constexpr int kRows = 4;                     // output rows per block
+constexpr int kBatch = 4;                    // edge rows loaded at once
+constexpr unsigned kAll = 0xffffffffu;
+
+constexpr float kNeg = -1e30f;       // "no edge" sentinel and running-max init
+constexpr float kLive = -1e29f;      // a COO score above this is a real edge
+constexpr float kMinDenom = 1e-30f;  // softmax denominator floor
+
+// A warp's running state for one output row.
+struct RowState {
+  float m, l;                 // softmax running max and sum
+  float acc[kLaneCols];       // this lane's columns col + 32 c
+};
+
+__device__ __forceinline__ void reset(RowState& st) {
+  st.m = kNeg;
+  st.l = 0.f;
+#pragma unroll
+  for (int c = 0; c < kLaneCols; ++c) st.acc[c] = 0.f;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
+  return v;
+}
+
+// Fold up to 32 scores (one per lane, `live` marks real edges) into the
+// online softmax: m grows to cover them, l and acc are rescaled by
+// exp(m_old - m_new).  Returns this lane's probability exp(s - m_new), or 0.
+__device__ __forceinline__ float softmax_fold(RowState& st, float s, bool live) {
+  const float m_new = fmaxf(st.m, warp_max(live ? s : kNeg));
+  const float alpha = expf(st.m - m_new);
+  const float p = live ? expf(s - m_new) : 0.f;
+  st.l = st.l * alpha + warp_sum(p);
+  st.m = m_new;
+#pragma unroll
+  for (int c = 0; c < kLaneCols; ++c) st.acc[c] *= alpha;
+  return p;
+}
+
+// acc += weight[j] * rows[j][col .. col + 96 step 32] for every lane j set
+// in `mask` (warp-uniform).  `weight` and `row` are per-lane registers read
+// by shuffle; row(j) gives the value row's base pointer.  Loads of up to
+// kBatch rows are issued before their FMAs.
+template <typename RowOf>
+__device__ __forceinline__ void gather_rows(RowState& st, unsigned mask,
+                                            float weight, RowOf row_of,
+                                            int col, int F) {
+  while (mask) {
+    int lane_of[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      lane_of[u] = mask ? __ffs(mask) - 1 : -1;
+      if (mask) mask &= mask - 1;
+    }
+    float v[kBatch][kLaneCols];
+    float wu[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = lane_of[u] < 0 ? lane_of[0] : lane_of[u];
+      wu[u] = __shfl_sync(kAll, weight, j);
+      const float* r = row_of(j);
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        const int cc = col + 32 * c;
+        v[u][c] = (lane_of[u] >= 0 && cc < F) ? __ldg(r + cc) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c)
+        st.acc[c] = fmaf(wu[u], v[u][c], st.acc[c]);
+  }
+}
+
+// Sweep row d of every tile in [t0, t1) of a row-major (T, D, W) block in
+// 32-column stripes, warp w taking stripes w, w + 8, ... of each tile.
+// visit(t, c0, v) gets the lane's value v of the stripe starting at column
+// c0 of tile t (`fill` past the row's end).
+template <typename Visit>
+__device__ __forceinline__ void sweep_row(const float* __restrict__ block,
+                                          int t0, int t1, int d, int D, int W,
+                                          float fill, Visit visit) {
+  const int lane = threadIdx.x % 32;
+  for (int t = t0; t < t1; ++t) {
+    const float* row = block + ((size_t)t * D + d) * W;
+    for (int c0 = (threadIdx.x / 32) * 32; c0 < W; c0 += kThreads) {
+      const int c = c0 + lane;
+      visit(t, c0, c < W ? __ldg(row + c) : fill);
+    }
+  }
+}
+
+// Merge the block's 8 warp states of row d and write it: sums add; softmax
+// states rescale to the common max, out = acc / max(l, 1e-30).
+template <bool kSoftmax>
+__device__ __forceinline__ void merge_and_store(const RowState& st,
+                                                float (*s_acc)[kCols],
+                                                float* s_m, float* s_l,
+                                                float* __restrict__ out,
+                                                int p, int d, int D, int F) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = 0; c < kLaneCols; ++c) s_acc[warp][lane + 32 * c] = st.acc[c];
+  if (lane == 0) {
+    s_m[warp] = st.m;
+    s_l[warp] = st.l;
+  }
+  __syncthreads();
+  const int cc = (int)(blockIdx.z * kCols + threadIdx.x);
+  if (threadIdx.x < kCols && cc < F) {
+    float a = 0.f;
+    if constexpr (kSoftmax) {
+      float m = kNeg;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) m = fmaxf(m, s_m[w]);
+      float l = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float scale = expf(s_m[w] - m);
+        l = fmaf(s_l[w], scale, l);
+        a = fmaf(s_acc[w][threadIdx.x], scale, a);
+      }
+      a /= fmaxf(l, kMinDenom);
+    } else {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) a += s_acc[w][threadIdx.x];
+    }
+    out[((size_t)p * D + d) * F + cc] = a;
+  }
+  __syncthreads();   // shared state is reused by the next row
+}
+
+// ---------------------------------------------------------------------------
+// 1. COO tile SpMM.  Replaces tile_spmm_pallas / _kernel
+//    (src/repro/kernels/tile_spmm/kernel.py): out[p] = sum_{t in p} A_t X_t
+//    over the densified (T, D, S) adjacency blocks.
+//    Bound: bytes.  The dense A block must be read once (T D S x 4 bytes)
+//    while the function needs only 2 F flops per real edge.  The 8 warps
+//    sweep row d of every tile of the partition in interleaved 32-column
+//    stripes (coalesced), find its nonzeros by ballot and add a * X[t, s, :]
+//    for each; the dense product's zero entries cost no FMA.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+coo_spmm_kernel(const float* __restrict__ adj, const float* __restrict__ x,
+                const int* __restrict__ part_ptr, float* __restrict__ out,
+                int D, int S, int F) {
+  __shared__ float s_acc[kWarps][kCols];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
+  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
+  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
+  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
+    RowState st;
+    reset(st);
+    sweep_row(adj, t0, t1, d, D, S, 0.f, [&](int t, int s0, float a) {
+      const float* xs = x + ((size_t)t * S + s0) * F;
+      gather_rows(st, __ballot_sync(kAll, a != 0.f), a,
+                  [&](int j) { return xs + (size_t)j * F; }, col, F);
+    });
+    merge_and_store<false>(st, s_acc, s_m, s_l, out, p, d, D, F);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. CSR tile SpMM.  Replaces tile_spmm_csr_pallas / _csr_kernel:
+//    out[p, d] = sum_{t in p} sum_{e in [rp[t,d], rp[t,d+1])} w[e] x[col[e]].
+//    Bound: bytes (the row pointers, one column index and weight per edge,
+//    the source rows read, the output), at 2 F flops per edge.  No (D, E)
+//    selector: for row d the 8 warps split the partition's tiles, each lane
+//    loading one tile's run [rp[t,d], rp[t,d+1]); the warp then walks the
+//    non-empty runs 32 edges at a time.  Splitting by tile spreads a hub
+//    row (tens of thousands of in-edges on a power-law graph) over the
+//    block.  Slots at or past rp[t, D] are never read: padding may be NaN.
+// ---------------------------------------------------------------------------
+template <bool kSoftmax>
+__global__ void __launch_bounds__(kThreads)
+csr_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col_idx,
+           const float* __restrict__ edge_val, const float* __restrict__ x,
+           const int* __restrict__ part_ptr, float* __restrict__ out,
+           int D, int E, int S, int F) {
+  __shared__ float s_acc[kWarps][kCols];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
+  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
+  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
+  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
+    RowState st;
+    reset(st);
+    // warp w takes tiles t0 + w + 8 k; lane j of a sweep holds tile tb + 8 j
+    for (int tb = t0 + warp; tb < t1; tb += kThreads) {
+      const int tl = tb + kWarps * lane;
+      int rb = 0, re = 0;
+      if (tl < t1) {
+        const int* rp = row_ptr + (size_t)tl * (D + 1) + d;
+        rb = __ldg(rp);
+        re = __ldg(rp + 1);
+      }
+      unsigned runs = __ballot_sync(kAll, re > rb);
+      while (runs) {
+        const int j = __ffs(runs) - 1;
+        runs &= runs - 1;
+        const int t = tb + kWarps * j;
+        const int e_lo = __shfl_sync(kAll, rb, j);
+        const int e_hi = __shfl_sync(kAll, re, j);
+        for (int e0 = e_lo; e0 < e_hi; e0 += 32) {
+          const int e = e0 + lane;
+          const bool live = e < e_hi;
+          const size_t slot = (size_t)t * E + e;
+          const unsigned mask = __ballot_sync(kAll, live);
+          if constexpr (kSoftmax) {
+            // edge_val = per-edge scores; x = per-edge values (T, E, F)
+            const float pr = softmax_fold(st, live ? __ldg(edge_val + slot) : kNeg,
+                                          live);
+            const float* vt = x + ((size_t)t * E + e0) * F;
+            gather_rows(st, mask, pr,
+                        [&](int jj) { return vt + (size_t)jj * F; }, col, F);
+          } else {
+            // edge_val = per-edge weights; x = source rows (T, S, F)
+            const float w = live ? __ldg(edge_val + slot) : 0.f;
+            const int src = live ? __ldg(col_idx + slot) : 0;
+            const float* xt = x + (size_t)t * S * F;
+            gather_rows(st, mask, w, [&](int jj) {
+              return xt + (size_t)__shfl_sync(kAll, src, jj) * F;
+            }, col, F);
+          }
+        }
+      }
+    }
+    merge_and_store<kSoftmax>(st, s_acc, s_m, s_l, out, p, d, D, F);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. COO online segment softmax.  Replaces segment_softmax_pallas /
+//    _softmax_kernel: per destination row, softmax over the per-edge score
+//    columns of all the partition's tiles (-1e30 marks "no edge"), then the
+//    weighted sum of the edge values, in one pass with a running max m, sum
+//    l and accumulator.
+//    Bound: bytes.  The (T, D, E) score block is read once and dominates;
+//    the real work is about 2 F flops and one exp per edge.  The warps
+//    sweep the score row like kernel 1; a 32-column stripe with no live
+//    score (s > -1e29) is skipped whole, a live one folds into (m, l, acc).
+//    The constants are the reference's: -1e30 init and sentinel, live where
+//    s > -1e29, out = acc / max(l, 1e-30), so a row with no edge gives 0.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+coo_softmax_kernel(const float* __restrict__ scores,
+                   const float* __restrict__ vals,
+                   const int* __restrict__ part_ptr, float* __restrict__ out,
+                   int D, int E, int F) {
+  __shared__ float s_acc[kWarps][kCols];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
+  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
+  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
+  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
+    RowState st;
+    reset(st);
+    sweep_row(scores, t0, t1, d, D, E, kNeg, [&](int t, int e0, float s) {
+      const bool live = s > kLive;
+      const unsigned mask = __ballot_sync(kAll, live);
+      if (!mask) return;
+      const float pr = softmax_fold(st, s, live);
+      const float* ve = vals + ((size_t)t * E + e0) * F;
+      gather_rows(st, mask, pr,
+                  [&](int j) { return ve + (size_t)j * F; }, col, F);
+    });
+    merge_and_store<true>(st, s_acc, s_m, s_l, out, p, d, D, F);
+  }
+}
+
+// 4. CSR online segment softmax.  Replaces segment_softmax_csr_pallas /
+//    _csr_softmax_kernel: the same softmax over each row's CSR runs, with
+//    per-edge scores (T, E) and gathered per-edge values (T, E, F).
+//    Bound: bytes (row pointers, one score and one F-wide value row per
+//    edge, the output), at about 2 F flops and one exp per edge.  It is
+//    csr_kernel<true>: the tile split and run walk of kernel 2, each
+//    32-edge piece of a run folded into (m, l, acc) like kernel 3.
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+inline dim3 grid_of(int P, int D, int F) {
+  return dim3(P, ceil_div(D, kRows), ceil_div(F, kCols));
+}
+
+}  // namespace
+
+extern "C" {
+
+int zipper_tile_spmm_coo(const void* adj, const void* x, const void* part_ptr,
+                         void* out, int P, int D, int S, int F, void* stream) {
+  if (P > 0 && D > 0 && F > 0) {
+    coo_spmm_kernel<<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)adj, (const float*)x, (const int*)part_ptr,
+        (float*)out, D, S, F);
+  }
+  return (int)cudaGetLastError();
+}
+
+int zipper_tile_spmm_csr(const void* row_ptr, const void* col, const void* w,
+                         const void* x, const void* part_ptr, void* out,
+                         int P, int D, int E, int S, int F, void* stream) {
+  if (P > 0 && D > 0 && F > 0) {
+    csr_kernel<false><<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)row_ptr, (const int*)col, (const float*)w,
+        (const float*)x, (const int*)part_ptr, (float*)out, D, E, S, F);
+  }
+  return (int)cudaGetLastError();
+}
+
+int zipper_segment_softmax_coo(const void* scores, const void* vals,
+                               const void* part_ptr, void* out,
+                               int P, int D, int E, int F, void* stream) {
+  if (P > 0 && D > 0 && F > 0) {
+    coo_softmax_kernel<<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)scores, (const float*)vals, (const int*)part_ptr,
+        (float*)out, D, E, F);
+  }
+  return (int)cudaGetLastError();
+}
+
+int zipper_segment_softmax_csr(const void* row_ptr, const void* scores,
+                               const void* vals, const void* part_ptr,
+                               void* out, int P, int D, int E, int F,
+                               void* stream) {
+  if (P > 0 && D > 0 && F > 0) {
+    csr_kernel<true><<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)row_ptr, nullptr, (const float*)scores,
+        (const float*)vals, (const int*)part_ptr, (float*)out, D, E, 0, F);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

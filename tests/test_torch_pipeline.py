@@ -1,0 +1,135 @@
+"""The port's `run_pipelined` and `run_reference` against `repro`'s, on the
+same numpy graphs, weights and inputs (CPU: the kernels' plain versions).
+
+Tolerances are the reference's own (ARCHITECTURE.md "Invariants"): 5e-4
+absolute against the oracle, 1e-4 for the fused GAT softmax.  sage is held
+relative to max|ref|: `gather_max` clamps empty segments to -1e30 and
+`W_neigh` carries that into outputs near 1e30 (ROADMAP C.1), in both
+packages alike.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import compiler as jcompiler
+from repro.core import executor as jexecutor
+from repro.core import pipeline as jpipeline
+from repro.core import tiling as jtiling
+from repro.gnn import graphs as jgraphs
+from repro.gnn import models as jmodels
+from repro_torch.core import compiler as tcompiler
+from repro_torch.core import executor as texecutor
+from repro_torch.core import pipeline as tpipeline
+from repro_torch.core import tiling as ttiling
+from repro_torch.gnn import models as tmodels
+from repro_torch.kernels.tile_spmm import kernel as tkernel
+
+MODELS = ("gcn", "gat", "sage", "ggnn", "rgcn", "gin")
+DIM = 16
+
+
+def _tol(name):
+    return 1e-4 if name == "gat" else 5e-4
+
+
+def _err(name, got, want):
+    err = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+    if name == "sage":
+        err /= max(1.0, float(np.max(np.abs(want))))
+    return err
+
+
+def _setup(name, n_layers, V=64, E=260):
+    etypes = 3 if jmodels.MODELS[name].needs_etype else None
+    g = jgraphs.random_graph(V, E, seed=3, model="powerlaw", n_edge_types=etypes)
+    if n_layers == 1:
+        jtr, ttr = jmodels.trace_named(name, DIM, DIM), tmodels.trace_named(name, DIM, DIM)
+    else:
+        jtr = jmodels.trace_stacked(name, n_layers, DIM, DIM, DIM)
+        ttr = tmodels.trace_stacked(name, n_layers, DIM, DIM, DIM)
+    params = jmodels.init_params(jtr, seed=1)
+    inputs = jmodels.init_inputs(jtr, g, seed=2)
+    return g, jtr, ttr, params, inputs
+
+
+@pytest.mark.parametrize("kernel_dispatch", [True, False], ids=["kernels", "scan"])
+@pytest.mark.parametrize("layout", ["coo", "csr"])
+@pytest.mark.parametrize("n_layers", [1, 2])
+@pytest.mark.parametrize("name", MODELS)
+def test_pipelined_matches_reference_engines(name, n_layers, layout,
+                                             kernel_dispatch):
+    g, jtr, ttr, params, inputs = _setup(name, n_layers)
+    oracle = np.asarray(jexecutor.run_reference(jtr, g, inputs, params)[0])
+    jts = jtiling.grid_tile(g, 3, 3, sparse=True, layout=layout)
+    jout = np.asarray(jpipeline.run_pipelined(
+        jcompiler.compile_gnn(jtr), g, jts, inputs, params,
+        kernel_dispatch=kernel_dispatch)[0])
+
+    tts = ttiling.grid_tile(g, 3, 3, sparse=True, layout=layout)
+    tkernel.reset_launches()
+    tout = tpipeline.run_pipelined(tcompiler.compile_gnn(ttr), g, tts, inputs,
+                                   params, kernel_dispatch=kernel_dispatch,
+                                   device="cpu")
+    assert sum(tkernel.LAUNCHES.values()) == 0      # CPU: plain versions only
+    assert len(tout) == 1 and tuple(tout[0].shape) == oracle.shape
+    got = tout[0].numpy()
+    assert _err(name, got, oracle) < _tol(name)
+    assert _err(name, got, jout) < _tol(name)
+
+    tref = texecutor.run_reference(ttr, g, inputs, params, device="cpu")[0]
+    assert _err(name, tref.numpy(), oracle) < _tol(name)
+
+
+@pytest.mark.parametrize("name,reorder,n_buckets", [
+    ("gcn", "degree", None), ("gat", "degree", 3), ("sage", None, 3),
+    ("rgcn", "degree", 2), ("gin", "out", 3)])
+@pytest.mark.parametrize("layout", ["coo", "csr"])
+def test_reorder_and_buckets_match_oracle(name, reorder, n_buckets, layout):
+    """Degree reordering (inputs permuted in, outputs back) and size
+    buckets (per-bucket kernel calls summed) leave the result unchanged."""
+    g, jtr, ttr, params, inputs = _setup(name, 2, V=90, E=420)
+    oracle = np.asarray(jexecutor.run_reference(jtr, g, inputs, params)[0])
+    tiles, ro = ttiling.build_tiles(g, 3, 3, reorder=reorder,
+                                    n_buckets=n_buckets, layout=layout)
+    out = tpipeline.run_pipelined(tcompiler.compile_gnn(ttr), ro.graph, tiles,
+                                  inputs, params, reordering=ro, device="cpu")
+    assert _err(name, out[0].numpy(), oracle) < _tol(name)
+
+
+def test_bind_run_with_reuses_one_runner():
+    """A same-signature tile set runs through the built runner (no rebuild)
+    and matches a fresh runner; a different signature is refused."""
+    name = "gat"
+    _, _, ttr, params, _ = _setup(name, 2)
+    c = tcompiler.compile_gnn(ttr)
+    gs = [jgraphs.random_graph(64, 260, seed=s) for s in (5, 6)]
+    ts = [ttiling.pad_tileset(t, 12, 40, 64) for t in
+          (ttiling.grid_tile(g, 3, 3, layout="csr") for g in gs)]
+    assert ts[0].shape_signature() == ts[1].shape_signature()
+    runner = tpipeline.PipelinedRunner(c, gs[0], ts[0], device="cpu")
+    inputs = tmodels.init_inputs(ttr, gs[1], seed=9)
+    warm = runner.run_with(ts[1], inputs, params)[0]
+    fresh = tpipeline.run_pipelined(c, gs[1], ts[1], inputs, params,
+                                    device="cpu")[0]
+    assert runner.jit_cache_size() == 1
+    assert runner.signature[1] == ts[1].shape_signature()
+    torch.testing.assert_close(warm, fresh, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="structurally identical"):
+        runner.bind(ttiling.grid_tile(gs[1], 2, 2, layout="csr"))
+
+
+def test_entry_points_run_on_cuda_unless_told_otherwise():
+    """With no card visible, omitting ``device`` raises instead of quietly
+    running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default device is valid")
+    g, _, ttr, params, inputs = _setup("gcn", 1)
+    c = tcompiler.compile_gnn(ttr)
+    ts = ttiling.grid_tile(g, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipeline.run_pipelined(c, g, ts, inputs, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipeline.PipelinedRunner(c, g, ts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        texecutor.run_reference(ttr, g, inputs, params)
