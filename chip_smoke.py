@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line or more:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch version;
-2. build: compile ``csrc/tile_spmm.cu`` for sm_90a, with the seconds taken;
+2. build: compile the three ``csrc/*.cu`` sources for sm_90a side by side
+   (one ``nvcc`` each), with the seconds taken and ``ptxas``' report;
 3. kernel checks: each of the four CUDA tile kernels against its plain
    PyTorch version on the card, at the shapes of phases 4 and 5, with its
    median time over CUDA-event-timed runs, the plain version's time, the
@@ -19,12 +20,35 @@ Phases, each printing one JSON line:
    (299,068 vertices, 977,676 edges) for 2-layer gcn and gat at width 128,
    against ``run_reference``.
 
-Launch counters are set to 0 before phase 4 and read after phase 5; every
-kernel must have launched there.  Then one ``{"kernels": [...]}`` line, the
+6. LM kernel checks: the flash-attention and grouped-FFN kernels against
+   their plain versions, in fp32 and bf16, at phase 7's shapes — flash
+   (1, 4096, 128, 192 / v 128) causal (DeepSeek-V2 MLA prefill), (1, 4096,
+   12, 128) with 2 KV heads causal (Qwen2-1.5B prefill), (4, 1, 12, 128)
+   against a 40-slot cache with ``kv_len`` (its decode); grouped FFN over
+   (160, 48, 5120) buckets with f 1536 and the live counts of a real
+   routing of a 1,024-token prefill chunk, and over (160, 8, 5120) for a
+   4-token decode step — plus one flash case off the path (2, 65 queries,
+   130 keys, 4 / 2 heads, head dim 256, causal, window 30, ``kv_len``),
+   with the same timings and bounds as phase 3; elementwise limits scaled
+   by each sum's rounding magnitude (see ``LM_KERNEL_TOL``);
+7. LM serving: for qwen2-1.5b (all 28 layers) and deepseek-v2-236b (full
+   width, depth cut to 2 layers: the leading dense layer and one MoE
+   layer), random fp32 weights from a seed; ``serve_requests`` with
+   ``launch/serve.py``'s defaults (8 requests, batch 4, prompts of 4-24
+   tokens from ``default_rng(0)``, 16 new tokens), tokens/s and the median
+   decode-step latency; teacher-forced decode of an 8-token prompt against
+   ``forward`` at every position (2e-3 dense, 5e-3 MLA, scaled by
+   max(1, |ref|): the reference's own tolerances); ``make_prefill_step`` on
+   one 4,096-token prompt, twice (first and warm seconds) with its peak
+   memory; a ``torch.profiler`` breakdown of 8 decode steps and a prefill.
+
+Launch counters are set to 0 before phase 4 and read after phase 5, and set
+to 0 again before phase 7 and read after it; every kernel must have
+launched on its path.  Then one ``{"kernels": [...]}`` line (all six), the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
 so does a machine without a visible CUDA device.  Weights and inputs come
-from fixed seeds.  fp32 throughout, TF32 off.
+from fixed seeds.  fp32 throughout (phase 6 adds bf16), TF32 off.
 """
 from __future__ import annotations
 
@@ -33,11 +57,13 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # |kernel - plain| <= abs + rel * (the plain version over |inputs|): both sum
 # in fp32 in another order, and that difference scales with the terms'
 # magnitudes, not with the result (a high-degree row's sum cancels)
@@ -50,7 +76,29 @@ REPLACES = {
     "tile_spmm_csr": "src/repro/kernels/tile_spmm/kernel.py:172",
     "segment_softmax": "src/repro/kernels/tile_spmm/kernel.py:262",
     "segment_softmax_csr": "src/repro/kernels/tile_spmm/kernel.py:234",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:112",
+    "grouped_ffn": "src/repro/kernels/moe_dispatch/kernel.py:57",
 }
+LM_SOURCES = {
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "grouped_ffn": "src/repro_torch/kernels/moe_dispatch/csrc/grouped_ffn.cu",
+}
+# |kernel - plain| <= abs + rel * magnitude (+ BF16_ULP * |plain| in bf16),
+# elementwise.  Both sides compute in fp32 from the same inputs, so in fp32
+# they differ only by the order of their sums, whose rounding scales with the
+# magnitude: what the sums' terms add up to in absolute value (flash: the
+# plain version on |v|; grouped FFN: ffn_magnitude, stage by stage, with the
+# gate/up errors carried through silu).  The magnitude bounds rounding errors
+# that all align; real ones random-walk far below it: the plain versions in
+# fp32 against fp64 at these shapes differ by 1.1e-6 of it (flash, where an
+# error in a score moves its exp) and 1.2e-9 (grouped FFN), so rel leaves
+# 5-80x room and still fails a wrong row by orders of magnitude.  In bf16 the
+# same fp32 results are rounded to bf16, and two nearby fp32 values may
+# round to neighbours one unit in the last place apart: 2^-7 of |plain|.
+LM_KERNEL_TOL = {"flash_attention": (1e-6, 1e-5), "grouped_ffn": (1e-6, 1e-7)}
+BF16_ULP = 2.0 ** -7
+LM_MODEL_TOL = {"dense": 2e-3, "moe": 5e-3}   # decode vs forward, x max(1, |ref|)
+PREFILL_LEN = 4096
 
 
 def emit(obj) -> None:
@@ -79,9 +127,9 @@ def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     """Least time (ms) on the card, and which term sets it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -315,14 +363,309 @@ def whole_graph_phase(graph, tiles, dev):
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the LM kernels against their plain versions at phase 7's shapes
+# ---------------------------------------------------------------------------
+
+def _flash_keep(B, Sq, Sk, causal, window, kv_len, dev):
+    """(B, Sq, Sk) bool: the (query, key) pairs the masks keep, queries
+    right-aligned against the keys."""
+    import torch
+    q_pos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=dev)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window is not None:
+        keep &= k_pos > q_pos - window
+    lens = torch.full((B,), Sk, device=dev) if kv_len is None else kv_len.long()
+    return keep[None] & (k_pos[None] < lens[:, None, None])
+
+
+def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
+                     cache_len=40, decode_batch=4, runs=5):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.moe_dispatch import kernel as GK
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.kernels.moe_dispatch.ref import grouped_ffn_magnitude, grouped_ffn_ref
+    from repro_torch.models.moe import capacity
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    rows, failed = [], []
+
+    def check(name, case, dtype, kernel, plain, magnitude, n_bytes, n_flops,
+              library, library_label, shapes, primary):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        tol = LM_KERNEL_TOL[name]
+        limit = tol[0] + tol[1] * magnitude().float()
+        if dtype == "bfloat16":
+            limit += BF16_ULP * want.abs()
+        max_abs = float(err.max())
+        worst = float((err / limit).max())       # <= 1 where the check holds
+        if not bool(torch.isfinite(got).all()):
+            failed.append(f"{name} {case} {dtype}: non-finite output")
+        elif worst > 1:
+            failed.append(f"{name} {case} {dtype}: max abs err {max_abs}, "
+                          f"{worst:.3g} x its elementwise limit")
+        del got, want, err, limit
+        rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else FP32_FLOPS_PER_S
+        b_ms, b_by = bound(n_bytes, n_flops, rate)
+        row = dict(name=name, case=case, dtype=dtype, route="cuda",
+                   source=LM_SOURCES[name], replaces=REPLACES[name],
+                   max_abs_err=max_abs, err_over_limit=worst, tol_abs=tol[0],
+                   tol_rel=tol[1], tol_ulp=BF16_ULP if dtype == "bfloat16" else 0.0,
+                   ms=time_ms(kernel, runs, 1), plain_ms=time_ms(plain, runs, 1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, runs, 1),
+                   library=library_label, shapes=shapes, primary=primary)
+        emit(dict(phase="lm_kernel_check", **row))
+        rows.append(row)
+        torch.cuda.empty_cache()
+
+    # -- flash attention: MLA prefill, GQA prefill, GQA decode (the path's
+    # shapes), and one case off the path for the options it does not use:
+    # head dim 256, a sliding window, a partial last query tile, kv_len
+    m = moe_cfg.mla
+    flash_cases = [
+        ("mla_prefill", 1, prefill_len, prefill_len, moe_cfg.n_heads, moe_cfg.n_heads,
+         m.qk_nope + m.qk_rope, m.v_dim, True, None, None),
+        ("gqa_prefill", 1, prefill_len, prefill_len, dense_cfg.n_heads,
+         dense_cfg.n_kv_heads, dense_cfg.hdim, dense_cfg.hdim, True, None, None),
+        ("gqa_decode", decode_batch, 1, cache_len, dense_cfg.n_heads,
+         dense_cfg.n_kv_heads, dense_cfg.hdim, dense_cfg.hdim, False, None,
+         [cache_len - (cache_len * i) // (2 * decode_batch) for i in range(decode_batch)]),
+        ("window_d256", 2, 65, 130, 4, 2, 256, 256, True, 30, [110, 130]),
+    ]
+    for case, B, Sq, Sk, H, K, D, Dv, causal, window, kv_list in flash_cases:
+        q32, k32, v32 = randn(B, Sq, H, D), randn(B, Sk, K, D), randn(B, Sk, K, Dv)
+        kv_len = (None if kv_list is None
+                  else torch.tensor(kv_list, dtype=torch.int32, device=dev))
+        keep = _flash_keep(B, Sq, Sk, causal, window, kv_len, dev)
+        # every query row keeps a key: a row with none is 0 from the kernel
+        # (as from the Pallas kernel) and the masked rows' mean from the
+        # plain version (as from the scan path)
+        require(bool(keep.any(-1).all()), f"flash {case}: a query row keeps no key")
+        pairs = int(keep.sum())
+        kv_rows = B * Sk if kv_list is None else sum(min(Sk, n) for n in kv_list)
+        # the library yardstick: SDPA on (B, H, S, D), K/V heads repeated to
+        # H and the layout change made outside the timing; a boolean mask
+        # wherever is_causal cannot say it
+        mask = None if window is None and kv_len is None else keep[:, None]
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q, k, v = q32.to(tdt), k32.to(tdt), v32.to(tdt)
+            v_abs = v.abs()
+            el = q.element_size()
+            n_bytes = el * (q.numel() + kv_rows * K * (D + Dv) + B * Sq * H * Dv) + \
+                (0 if kv_len is None else 4 * B)
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.transpose(1, 2).repeat_interleave(H // K, dim=1).contiguous()
+            vt = v.transpose(1, 2).repeat_interleave(H // K, dim=1).contiguous()
+            opts = dict(causal=causal, window=window, kv_len=kv_len)
+            check("flash_attention", case, dtype,
+                  lambda: FK.flash_attention_cuda(q, k, v, **opts),
+                  lambda: flash_attention_ref(q, k, v, **opts),
+                  lambda: flash_attention_ref(q, k, v_abs, **opts),
+                  n_bytes, pairs * H * (2 * D + 2 * Dv),
+                  library=lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None),
+                  library_label="torch.nn.functional.scaled_dot_product_attention "
+                                "(K/V repeated to H heads)",
+                  shapes=dict(B=B, Sq=Sq, Sk=Sk, H=H, K=K, D=D, Dv=Dv, causal=causal,
+                              window=window, kv_len=kv_list, pairs_per_head=pairs),
+                  primary=(case == "mla_prefill" and dtype == "float32"))
+            del q, k, v, v_abs, qt, kt, vt
+        del q32, k32, v32, keep, mask
+
+    # -- grouped FFN: a prefill chunk's buckets and a decode step's, with the
+    # live counts of a real top-k routing
+    mo = moe_cfg.moe
+    E, d, f = mo.n_routed, moe_cfg.d_model, mo.d_ff_expert
+    w32 = dict(wg=randn(E, d, f, scale=d ** -0.5), wu=randn(E, d, f, scale=d ** -0.5),
+               wd=randn(E, f, d, scale=f ** -0.5))
+    router = randn(d, E, scale=d ** -0.5)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        w = {k_: t.to(tdt) for k_, t in w32.items()}
+        el = torch.finfo(tdt).bits // 8
+        for case, n_tok in (("prefill_chunk", prefill_len // 4), ("decode", decode_batch)):
+            cap = capacity(moe_cfg, n_tok)
+            x = randn(n_tok, d)
+            r = moe_ops.route(x, router, mo.top_k, cap, norm_topk=mo.norm_topk)
+            buckets = moe_ops.dispatch(x, r, E, cap).to(tdt)
+            counts = torch.clamp(r.counts, max=cap).to(torch.int32)
+            live_rows = int(counts.sum())
+            live_experts = int((counts > 0).sum())
+            n_bytes = el * (live_experts * 3 * d * f + live_rows * d + E * cap * d) + 4 * E
+            args = (buckets, w["wg"], w["wu"], w["wd"], counts)
+
+            def library(b=buckets, w=w):
+                h = torch.bmm(b, w["wg"])
+                return torch.bmm(F.silu(h) * torch.bmm(b, w["wu"]), w["wd"])
+
+            check("grouped_ffn", case, dtype,
+                  lambda: GK.grouped_ffn_cuda(*args),
+                  lambda: grouped_ffn_ref(*args),
+                  lambda: grouped_ffn_magnitude(*args),
+                  n_bytes, 2 * 3 * d * f * live_rows, library=library,
+                  library_label=f"torch.bmm x3 + silu over all {E} experts, dead rows too",
+                  shapes=dict(E=E, C=cap, d=d, f=f, tokens=n_tok, top_k=mo.top_k,
+                              live_rows=live_rows, live_experts=live_experts),
+                  primary=(case == "prefill_chunk" and dtype == "float32"))
+            del x, r, buckets, args
+        del w
+    del w32, router
+    torch.cuda.empty_cache()
+    require(not failed, "; ".join(failed))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: LM serving, the path of the LM kernels
+# ---------------------------------------------------------------------------
+
+def device_breakdown(fn, n_calls: int = 1, top: int = 6):
+    """Kernel time on the card while ``fn`` runs, from ``torch.profiler``:
+    device ms and kernel launches per call, and the largest kernels by
+    their share of the device time.  None where the profiler saw no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us <= 0:
+        return None
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return dict(device_ms=total_us / 1e3 / n_calls,
+                launches=sum(e.count for e in kernels) / n_calls,
+                top=[dict(kernel=e.key[:80], share=e.self_device_time_total / total_us)
+                     for e in kernels[:top]])
+
+
+def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=4,
+                     max_prompt=24, max_new=16, check_len=8):
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, tree_items
+
+    for label, cfg in models:
+        t0 = time.perf_counter()
+        params = materialize(torch.Generator(device=dev).manual_seed(0),
+                             lm.model_template(cfg), dtype_override="float32",
+                             device=dev)
+        n_params = sum(t.numel() for _, t in tree_items(params))
+        init_s = time.perf_counter() - t0
+
+        # serving with launch/serve.py's defaults
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, rng.integers(4, max_prompt + 1))
+                   for _ in range(requests)]
+        res = serve_requests(cfg, params, prompts, batch=batch, max_prompt=max_prompt,
+                             max_new=max_new, device=dev)
+        toks = np.concatenate([o.ravel() for o in res["tokens"]])
+        require(toks.size == requests * max_new and toks.min() >= 0
+                and toks.max() < cfg.vocab, f"serving {label}: bad tokens")
+
+        # teacher-forced decode against forward
+        tokens = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab, (1, check_len)), device=dev)
+        out = lm.forward(cfg, params, {"tokens": tokens})
+        full = out[0] if cfg.family == "moe" else out
+        require(bool(torch.isfinite(full).all()), f"{label}: non-finite forward logits")
+        cache = materialize(None, lm.cache_template(cfg, 1, check_len),
+                            dtype_override="float32", device=dev)
+        step = make_decode_step(cfg)
+        err = 0.0
+        for pos in range(check_len):
+            logits, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
+            require(bool(torch.isfinite(logits).all()),
+                    f"{label}: non-finite decode logits at {pos}")
+            err = max(err, scaled_err(logits, full[:, pos]))
+        tol = LM_MODEL_TOL[cfg.family]
+        require(err <= tol, f"{label}: decode vs forward err {err} over {tol}")
+        del out, full, cache
+
+        # where a decode step's time goes: 8 steps of a batch at the serving
+        # batch size, profiled; set against the unprofiled step p50
+        cache = materialize(None, lm.cache_template(cfg, batch, max_prompt + max_new),
+                            dtype_override="float32", device=dev)
+        tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+
+        def decode_steps(n=8):
+            nonlocal cache, tok
+            for pos in range(n):
+                logits, cache = step(params, cache, tok, pos)
+                tok = torch.argmax(logits, -1, keepdim=True)
+
+        decode_steps(2)
+        decode_prof = device_breakdown(decode_steps, 8)
+        del cache
+
+        # one long prompt through the prefill step: the first call (the
+        # allocator grows to the prompt's activations), then a warm one
+        prompt = {"tokens": torch.as_tensor(np.random.default_rng(4).integers(
+            0, cfg.vocab, (1, prefill_len)), device=dev)}
+        prefill = make_prefill_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prefill_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            nxt = prefill(params, prompt)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        require(tuple(nxt.shape) == (1, cfg.vocab) and bool(torch.isfinite(nxt).all()),
+                f"{label}: prefill logits {tuple(nxt.shape)} or non-finite")
+        prefill_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+        prefill_prof = device_breakdown(lambda: prefill(params, prompt))
+        busy = (None if decode_prof is None
+                else decode_prof["device_ms"] / 1e3 / res["step_p50_s"])
+        emit(dict(phase="lm_serving", model=label, family=cfg.family,
+                  layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+                  param_gb=4 * n_params / 1e9, init_s=init_s,
+                  requests=requests, batch=batch, max_new=max_new,
+                  serve_s=res["seconds"], tokens_per_s=res["tokens_per_s"],
+                  decode_steps=len(res["step_s"]), step_p50_s=res["step_p50_s"],
+                  decode_vs_forward_err=err, tol=tol, prefill_tokens=prefill_len,
+                  prefill_first_s=prefill_s[0], prefill_s=prefill_s[1],
+                  prefill_peak_mem_gb=prefill_mem_gb,
+                  decode_device_busy_share=busy, decode_profile=decode_prof,
+                  prefill_profile=prefill_prof))
+        del params, nxt, prompt
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    from repro_torch.configs import get_config
     from repro_torch.gnn import graphs as G
     from repro_torch.core.tiling import grid_tile
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.moe_dispatch import kernel as GK
     from repro_torch.kernels.tile_spmm import kernel as K
     from repro_torch.serve import ShapeRegistry
 
@@ -338,12 +681,16 @@ def main() -> int:
               cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count()))
 
-    # 2. build
+    # 2. build: one nvcc per source, all started at once, then load each
     t0 = time.perf_counter()
-    K.library()
-    log = K._build.library_path(K.SOURCE).with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        list(pool.map(_build.build, [m.SOURCE for m in (K, FK, GK)]))
+    ptxas = {}
+    for m in (K, FK, GK):
+        m.library()
+        log = _build.library_path(m.SOURCE).with_suffix(".log")
+        ptxas[m.SOURCE.name] = [ln.strip() for ln in log.read_text().splitlines()
+                                if "registers" in ln or "spill" in ln]
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas))
 
     # main-path inputs (host): the serving batch and the whole graph
@@ -375,10 +722,25 @@ def main() -> int:
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched on the main path")
 
+    # 6. LM kernel checks
+    dense_cfg = get_config("qwen2-1.5b")
+    moe_cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=2)
+    lm_rows = lm_kernel_checks(dense_cfg, moe_cfg, dev)
+
+    # 7. LM serving, with launch counts
+    FK.reset_launches()
+    GK.reset_launches()
+    lm_serving_phase([("qwen2-1.5b", dense_cfg), ("deepseek-v2-236b_x2", moe_cfg)], dev)
+    lm_launches = {**FK.LAUNCHES, **GK.LAUNCHES}
+    for name, n in lm_launches.items():
+        require(n > 0, f"kernel {name} was not launched on the LM serving path")
+    launches.update(lm_launches)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: (launches[r["name"]] if k == "launches" else r[k])
-                       for k in keys} for r in rows]})
+                       for k in keys}
+                      for r in rows + [r for r in lm_rows if r["primary"]]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

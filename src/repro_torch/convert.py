@@ -4,6 +4,9 @@
 :mod:`repro_torch.gnn.models`) make float32 numpy arrays from a seed; these
 helpers turn them into float32 tensors on the device, checked against the
 shapes the trace declares, so both packages run on identical weights.
+:func:`lm_params_from_reference` does the same for an LM's parameter tree
+(the reference's ``materialize`` output, as numpy), checked against the
+port's ``model_template``.
 """
 from __future__ import annotations
 
@@ -57,3 +60,36 @@ def inputs_from_reference(np_inputs: Mapping, device: Device = None,
                 raise ValueError(f"input {name!r} has shape {shape}, the "
                                  f"trace declares (rows, {n.dim})")
     return {k: to_device(v, dev) for k, v in np_inputs.items()}
+
+
+def lm_params_from_reference(np_tree: Mapping, cfg, device: Device = None) -> Dict:
+    """An LM parameter tree (nested dicts of arrays, as the reference's
+    ``materialize(key, lm.model_template(cfg))`` makes it, converted to
+    numpy) -> the same tree of tensors on ``device`` (``cuda`` unless
+    named), each in its template's dtype unless the array is float32 (the
+    reference's ``dtype_override="float32"``).  Names and shapes must match
+    :func:`repro_torch.models.lm.model_template`."""
+    from .models.common import ParamLeaf, torch_dtype, tree_items
+    from .models.lm import model_template
+
+    dev = resolve(device)
+    tmpl = dict(tree_items(model_template(cfg)))
+    got = dict(tree_items(dict(np_tree)))
+    if set(got) != set(tmpl):
+        missing = sorted(".".join(p) for p in set(tmpl) - set(got))
+        extra = sorted(".".join(p) for p in set(got) - set(tmpl))
+        raise ValueError(f"parameter names differ from model_template({cfg.name}): "
+                         f"missing {missing}, unexpected {extra}")
+    out: Dict = {}
+    for path, arr in got.items():
+        l: ParamLeaf = tmpl[path]
+        if tuple(np.shape(arr)) != l.shape:
+            raise ValueError(f"param {'.'.join(path)!r} has shape "
+                             f"{tuple(np.shape(arr))}, the template declares {l.shape}")
+        arr = np.asarray(arr)
+        dt = torch.float32 if arr.dtype == np.float32 else torch_dtype(l.dtype)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.as_tensor(arr.astype(np.float32)).to(device=dev, dtype=dt)
+    return out

@@ -6,7 +6,7 @@ build is keyed by a hash of the source and the compiler flags and lands in
 ``build/kernels/`` at the repository root (listed in ``.gitignore``); a
 later process with the same source loads the existing library.  Nothing is
 compiled when a module is imported: the first launch (or an explicit
-:func:`load`) builds.
+:func:`build` / :func:`load`) builds.
 """
 from __future__ import annotations
 
@@ -44,27 +44,34 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def load(source: Path) -> ctypes.CDLL:
+def build(source: Path) -> Path:
     """Compile ``source`` for sm_90a unless a build of this exact source
-    exists, then load it.  The compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills per kernel) is kept beside the library as
-    ``<name>.log``.  Raises ``RuntimeError`` if ``nvcc`` fails."""
+    exists; return the library's path.  The compiler's ``-Xptxas -v`` report
+    (registers, shared memory, spills per kernel) is kept beside the library
+    as ``<name>.log``.  The library appears by an atomic rename, so racing
+    builds of one source are harmless.  Raises ``RuntimeError`` if ``nvcc``
+    fails."""
+    source = Path(source).resolve()
+    lib_path = library_path(source)
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
+        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)   # atomic: a racing process sees all or nothing
+    return lib_path
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """:func:`build` ``source`` and load the library (once per process)."""
     source = Path(source).resolve()
     with _lock:
-        if source in _libs:
-            return _libs[source]
-        lib_path = library_path(source)
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
-            lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)   # atomic: a racing process sees all or nothing
-        _libs[source] = ctypes.CDLL(str(lib_path))
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(str(build(source)))
         return _libs[source]

@@ -1,0 +1,107 @@
+"""Capacity-bucketed MoE dispatch/combine and the grouped FFN.
+
+Ports ``repro.kernels.moe_dispatch.ops`` (ops.py:28-111): top-k routing
+with a degree-sort of assignments by expert (``route``), a gather of tokens
+into per-expert capacity buckets whose dead slots are zero (``dispatch``),
+the grouped SwiGLU FFN over the buckets (``grouped_ffn``), and a weighted
+scatter back to tokens (``combine``).  ``grouped_ffn`` takes the plain
+PyTorch version (``ref.py``) for CPU tensors and launches the hand-written
+kernel (``kernel.py``) for CUDA tensors, which raises rather than falling
+back.  All functions are device-local.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from . import kernel as K
+from .ref import grouped_ffn_ref
+
+
+@dataclasses.dataclass
+class Routing:
+    """Static-shape routing plan for one device's tokens."""
+
+    bucket_idx: torch.Tensor  # (T*k,) position in the flattened (E*C) buckets
+    token_idx: torch.Tensor   # (T*k,) source token of each assignment (sorted order)
+    keep: torch.Tensor        # (T*k,) bool — False = dropped by capacity
+    weight: torch.Tensor      # (T*k,) routing weight of each assignment
+    counts: torch.Tensor      # (E,) live tokens per expert (pre-capacity-clip)
+    aux_loss: torch.Tensor    # load-balance auxiliary loss (scalar)
+
+
+def route(x, router_w, top_k: int, capacity: int, *, norm_topk: bool = True,
+          router_bias: Optional[torch.Tensor] = None) -> Routing:
+    """Top-k routing + capacity-bucket assignment. x: (T, d)."""
+    T = x.shape[0]
+    logits = (x @ router_w).float()
+    if router_bias is not None:  # aux-loss-free balancing bias (DeepSeek-V3)
+        logits = logits + router_bias
+    probs = torch.softmax(logits, dim=-1)
+    E = probs.shape[-1]
+    top_p, top_i = torch.topk(probs, top_k, dim=-1)
+    if norm_topk:
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-20)
+
+    flat_e = top_i.reshape(-1)                        # (T*k,)
+    flat_w = top_p.reshape(-1)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    se, order = torch.sort(flat_e, stable=True)       # degree-sort reorder
+    st, sw = flat_t[order], flat_w[order]
+    first = torch.searchsorted(se, se, side="left")
+    pos = torch.arange(T * top_k, device=x.device) - first   # rank within expert
+    keep = pos < capacity
+    bucket_idx = torch.where(keep, se * capacity + pos,
+                             torch.full_like(se, E * capacity))  # sentinel slot
+
+    counts = torch.bincount(flat_e, minlength=E)
+    # Switch-style load-balance loss: E * sum_e f_e * p_e
+    f = counts.float() / max(T * top_k, 1)
+    aux = E * torch.sum(f * probs.mean(0))
+    return Routing(bucket_idx=bucket_idx, token_idx=st, keep=keep,
+                   weight=sw.to(x.dtype), counts=counts, aux_loss=aux)
+
+
+def dispatch(x, r: Routing, n_experts: int, capacity: int) -> torch.Tensor:
+    """Gather tokens into (E, C, d) buckets (dead slots are zero)."""
+    d = x.shape[-1]
+    buckets = torch.zeros((n_experts * capacity + 1, d), dtype=x.dtype, device=x.device)
+    buckets[r.bucket_idx] = x[r.token_idx]
+    return buckets[:-1].reshape(n_experts, capacity, d)
+
+
+def combine(y_buckets, r: Routing, n_tokens: int) -> torch.Tensor:
+    """Scatter expert outputs back to tokens, applying routing weights."""
+    E, C, d = y_buckets.shape
+    flat = torch.cat([y_buckets.reshape(E * C, d),
+                      y_buckets.new_zeros((1, d))])
+    vals = flat[r.bucket_idx] * (r.weight * r.keep)[:, None]
+    out = torch.zeros((n_tokens, d), dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, r.token_idx, vals)
+
+
+def grouped_ffn(buckets, w_gate, w_up, w_down, counts) -> torch.Tensor:
+    """Per-expert SwiGLU over (E, C, d) buckets; rows at or past
+    ``counts[e]`` come back zero."""
+    if buckets.device.type == "cpu":
+        return grouped_ffn_ref(buckets, w_gate, w_up, w_down, counts)
+    return K.grouped_ffn_cuda(buckets.contiguous(), w_gate.contiguous(),
+                              w_up.contiguous(), w_down.contiguous(),
+                              counts.to(device=buckets.device, dtype=torch.int32))
+
+
+def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int, capacity: int,
+              norm_topk: bool = True,
+              router_bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device-local routed MoE: route -> dispatch -> grouped FFN -> combine.
+
+    Returns (y, aux_loss)."""
+    E = w_gate.shape[0]
+    r = route(x, router_w, top_k, capacity, norm_topk=norm_topk,
+              router_bias=router_bias)
+    buckets = dispatch(x, r, E, capacity)
+    y_buckets = grouped_ffn(buckets, w_gate, w_up, w_down,
+                            torch.clamp(r.counts, max=capacity))
+    return combine(y_buckets, r, x.shape[0]), r.aux_loss

@@ -84,7 +84,11 @@ def test_serving_registry_and_signature_match():
 
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serve, "
-            "repro_torch.core.pipeline, repro_torch.kernels.segment_softmax\n"
+            "repro_torch.core.pipeline, repro_torch.kernels.segment_softmax, "
+            "repro_torch.configs, repro_torch.convert, repro_torch.models.lm, "
+            "repro_torch.launch.serve, repro_torch.launch.steps, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.moe_dispatch.ops\n"
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m == 'repro' or m.startswith('repro.')]\n"
             "print(bad)\n"
