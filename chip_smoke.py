@@ -11,7 +11,9 @@ Phases, each printing one JSON line or more:
 3. kernel checks: each of the four CUDA tile kernels against its plain
    PyTorch version on the card, at the shapes of phases 4 and 5, with its
    median time over CUDA-event-timed runs, the plain version's time, the
-   time of one PyTorch library call where one exists, and its bound;
+   time of one PyTorch library call where one exists, and its bound; the
+   CSR SpMM's plan is built first (its build time is its own field), and
+   the CSR SpMM, given its plan, runs once with host syncs made errors;
 4. serving (COO tiles): ``InferenceServer`` on 2-layer gcn and gat at width
    128 over a batch of 16 power-law graphs (2,000 vertices, 16,000 edges
    each), submitted three times — one build, then cache hits — against the
@@ -27,10 +29,12 @@ Phases, each printing one JSON line or more:
    against a 40-slot cache with ``kv_len`` (its decode); grouped FFN over
    (160, 48, 5120) buckets with f 1536 and the live counts of a real
    routing of a 1,024-token prefill chunk, and over (160, 8, 5120) for a
-   4-token decode step — plus one flash case off the path (2, 65 queries,
-   130 keys, 4 / 2 heads, head dim 256, causal, window 30, ``kv_len``),
-   with the same timings and bounds as phase 3; elementwise limits scaled
-   by each sum's rounding magnitude (see ``LM_KERNEL_TOL``);
+   4-token decode step — plus two flash cases off the path: a causal GQA
+   prefill of 1,000 tokens, whose length fits neither the query tile nor
+   the key tile, and (2, 65 queries, 130 keys, 4 / 2 heads, head dim 256,
+   causal, window 30, ``kv_len``), with the same timings and bounds as
+   phase 3; elementwise limits scaled by each sum's rounding magnitude (see
+   ``LM_KERNEL_TOL``); one flash call with host syncs made errors;
 7. LM serving: for qwen2-1.5b (all 28 layers) and deepseek-v2-236b (full
    width, depth cut to 2 layers: the leading dense layer and one MoE
    layer), random fp32 weights from a seed; ``serve_requests`` with
@@ -133,6 +137,19 @@ def bound(n_bytes: float, n_flops: float, flops_per_s: float = FP32_FLOPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def without_host_sync(fn):
+    """Run ``fn`` once with PyTorch's host syncs turned into errors."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
 def scaled_err(got, ref) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
@@ -145,6 +162,7 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     import torch
     from repro_torch.kernels.tile_spmm import kernel as K
     from repro_torch.kernels.tile_spmm import ops, ref
+    from repro_torch.kernels.tile_spmm.plan import csr_plan
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -154,7 +172,7 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     rows = []
 
     def check(name, kernel, plain, magnitude, n_bytes, n_flops, library=None,
-              note=None):
+              note=None, **extra):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = (got - want).abs()
@@ -169,7 +187,7 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
                    ms=time_ms(kernel), plain_ms=time_ms(plain),
                    bound_ms=b_ms, bound_by=b_by,
                    library_ms=None if library is None else time_ms(library),
-                   shapes=note)
+                   shapes=note, **extra)
         emit(dict(phase="kernel_check", **row))
         rows.append(row)
 
@@ -180,6 +198,7 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     n_edge = int(ts.n_edge.sum())
     n_src = int(ts.n_src.sum())
     part_id = torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev)
+    part_ptr = torch.as_tensor(K.partition_ptr(ts.part_id, P), device=dev)
     flags = torch.as_tensor(K.tile_flags(ts.part_id), device=dev)
     edge_dst = torch.as_tensor(ts.edge_dst, device=dev).long()
     edge_src = torch.as_tensor(ts.edge_src, device=dev).long()
@@ -189,7 +208,8 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     xsrc = randn(T, S, WIDTH)
     out_bytes = P * D * WIDTH * 4
     check("tile_spmm",
-          lambda: K.tile_spmm_cuda(adj, xsrc, part_id, flags, n_parts=P),
+          lambda: K.tile_spmm_cuda(adj, xsrc, part_id, flags, n_parts=P,
+                                   part_ptr=part_ptr),
           lambda: ref.tile_spmm_ref(adj, xsrc, part_id, P),
           lambda: ref.tile_spmm_ref(adj.abs(), xsrc.abs(), part_id, P),
           adj.numel() * 4 + n_src * WIDTH * 4 + T * 4 + out_bytes,
@@ -202,7 +222,8 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     scores = ops.densify_edge_scores(randn(T, E), edge_dst, n_edge_t, dmax=D)
     vals = randn(T, E, WIDTH)
     check("segment_softmax",
-          lambda: K.segment_softmax_cuda(scores, vals, part_id, flags, n_parts=P),
+          lambda: K.segment_softmax_cuda(scores, vals, part_id, flags, n_parts=P,
+                                         part_ptr=part_ptr),
           lambda: ref.segment_softmax_ref(scores, vals, part_id, P),
           lambda: ref.segment_softmax_ref(scores, vals.abs(), part_id, P),
           scores.numel() * 4 + n_edge * WIDTH * 4 + T * 4 + out_bytes,
@@ -218,6 +239,7 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     n_edge = int(ts.n_edge.sum())
     n_src = int(ts.n_src.sum())
     part_id = torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev)
+    part_ptr = torch.as_tensor(K.partition_ptr(ts.part_id, P), device=dev)
     flags = torch.as_tensor(K.tile_flags(ts.part_id), device=dev)
     row_ptr = torch.as_tensor(ts.row_ptr, dtype=torch.int32, device=dev)
     col = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
@@ -234,25 +256,43 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
         torch.stack([dest, t_e * S + col.long()[t_e, slot]]), w[t_e, slot],
         (P * D, T * S)).coalesce().to_sparse_csr()
     x_flat = xsrc.view(T * S, WIDTH)
-    check("tile_spmm_csr",
-          lambda: K.tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags,
-                                       n_parts=P),
+    # the CSR plan, built once per tile set (as PipelinedRunner.bind does):
+    # the first build in the process, and a second one
+    plan_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = csr_plan(row_ptr, part_id, P, E)
+        torch.cuda.synchronize()
+        plan_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def csr_spmm():
+        return K.tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags,
+                                    n_parts=P, plan=plan)
+
+    without_host_sync(csr_spmm)
+    check("tile_spmm_csr", csr_spmm,
           lambda: ref.tile_spmm_csr_ref(row_ptr, col, w, xsrc, part_id, P),
           lambda: ref.tile_spmm_csr_ref(row_ptr, col, w.abs(), xsrc.abs(),
                                         part_id, P),
-          rp_bytes + n_edge * 8 + n_src * WIDTH * 4 + T * 4 + out_bytes,
+          plan.nbytes + n_edge * 8 + n_src * WIDTH * 4 + out_bytes,
           2 * WIDTH * n_edge,
           library=lambda: torch.sparse.mm(sp, x_flat),
           note=dict(T=T, D=D, S=S, E=E, F=WIDTH, P=P, edges=n_edge,
+                    groups=plan.group_ptr.shape[0] - 1,
+                    zero_rows=plan.zero_row.shape[0],
+                    split_rows=plan.split_row.shape[0],
+                    partials=plan.n_partial, chunk_size=plan.chunk_size,
                     library="torch.sparse.mm of the (P*D, T*S) CSR matrix "
-                            "of the same edges"))
-    del sp, x_flat, xsrc, w
+                            "of the same edges"),
+          plan_first_ms=plan_ms[0], plan_ms=plan_ms[1], plan_bytes=plan.nbytes)
+    del sp, x_flat, xsrc, w, plan
 
     s_e = randn(T, E).masked_fill_(pad, float("nan"))
     vals = randn(T, E, WIDTH)
     check("segment_softmax_csr",
           lambda: K.segment_softmax_csr_cuda(row_ptr, s_e, vals, part_id, flags,
-                                             n_parts=P),
+                                             n_parts=P, part_ptr=part_ptr),
           lambda: ref.segment_softmax_csr_ref(row_ptr, s_e, vals, part_id, P),
           lambda: ref.segment_softmax_csr_ref(row_ptr, s_e, vals.abs(),
                                               part_id, P),
@@ -432,8 +472,10 @@ def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
         torch.cuda.empty_cache()
 
     # -- flash attention: MLA prefill, GQA prefill, GQA decode (the path's
-    # shapes), and one case off the path for the options it does not use:
-    # head dim 256, a sliding window, a partial last query tile, kv_len
+    # shapes), and two cases off the path: a prompt whose length fits
+    # neither the 128-row query tile nor the 64-key tile, and the options
+    # the path does not use (head dim 256, a sliding window, a partial last
+    # query tile, kv_len)
     m = moe_cfg.mla
     flash_cases = [
         ("mla_prefill", 1, prefill_len, prefill_len, moe_cfg.n_heads, moe_cfg.n_heads,
@@ -443,6 +485,8 @@ def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
         ("gqa_decode", decode_batch, 1, cache_len, dense_cfg.n_heads,
          dense_cfg.n_kv_heads, dense_cfg.hdim, dense_cfg.hdim, False, None,
          [cache_len - (cache_len * i) // (2 * decode_batch) for i in range(decode_batch)]),
+        ("gqa_ragged", 1, 1000, 1000, dense_cfg.n_heads, dense_cfg.n_kv_heads,
+         dense_cfg.hdim, dense_cfg.hdim, True, None, None),
         ("window_d256", 2, 65, 130, 4, 2, 256, 256, True, 30, [110, 130]),
     ]
     for case, B, Sq, Sk, H, K, D, Dv, causal, window, kv_list in flash_cases:
@@ -471,6 +515,8 @@ def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
             kt = k.transpose(1, 2).repeat_interleave(H // K, dim=1).contiguous()
             vt = v.transpose(1, 2).repeat_interleave(H // K, dim=1).contiguous()
             opts = dict(causal=causal, window=window, kv_len=kv_len)
+            if case == "gqa_prefill" and dtype == "float32":
+                without_host_sync(lambda: FK.flash_attention_cuda(q, k, v, **opts))
             check("flash_attention", case, dtype,
                   lambda: FK.flash_attention_cuda(q, k, v, **opts),
                   lambda: flash_attention_ref(q, k, v, **opts),

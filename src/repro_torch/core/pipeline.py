@@ -38,7 +38,9 @@ from ..convert import to_device
 from ..device import resolve
 from ..gnn.graphs import Graph
 from ..kernels.tile_spmm import ops as tops
-from ..kernels.tile_spmm.kernel import check_partition_major, tile_flags
+from ..kernels.tile_spmm.kernel import (check_partition_major, partition_ptr,
+                                        tile_flags)
+from ..kernels.tile_spmm.plan import csr_plan
 from .executor import _NEG_INF, apply_compute
 from .tiling import BucketedTileSet, TileSet
 
@@ -177,13 +179,15 @@ class PipelinedRunner:
 
     # ------------------------------------------------------------- constants
     def _tile_const(self, ts: TileSet) -> Dict[str, Array]:
-        """Kernel metadata for one tile batch: int32 partition ids and
-        FIRST/LAST flags, the partition presence mask, and for CSR tiles
-        the int32 row pointers and column indices."""
+        """Kernel metadata for one tile batch: int32 partition ids, their
+        runs ``part_ptr`` and FIRST/LAST flags, the partition presence
+        mask, and for CSR tiles the int32 row pointers and column indices.
+        ``part_ptr`` comes from the host array, so no launch syncs on it."""
         check_partition_major(ts.part_id)
         P, dev = self.tiles.n_dst_parts, self.device
         kc = dict(
             part_id=torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev),
+            part_ptr=torch.as_tensor(partition_ptr(ts.part_id, P), device=dev),
             flags=torch.as_tensor(tile_flags(ts.part_id), device=dev),
             pmask=torch.as_tensor(np.isin(np.arange(P), ts.part_id), device=dev))
         if ts.layout == "csr":
@@ -195,10 +199,15 @@ class PipelinedRunner:
 
     def _bucket_const(self, b: TileSet, ta: Dict[str, Array],
                       with_adj: bool) -> Dict[str, Array]:
-        """Per-bucket kernel metadata; dense adjacency (built on the device
-        from the edge arrays) only for pure SpMM over COO tiles."""
+        """Per-bucket kernel metadata for the SpMM blocks: over CSR tiles
+        the CSR plan (built on the device, once per bind), over COO tiles
+        for pure SpMM the dense adjacency (built on the device from the
+        edge arrays)."""
         kc = self._tile_const(b)
-        if with_adj and b.layout != "csr":
+        if b.layout == "csr":
+            kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"],
+                                  self.tiles.n_dst_parts, b.edge_src.shape[1])
+        elif with_adj:
             ones = torch.ones(ta["edge_src"].shape, device=self.device)
             kc["adj"] = tops.densify_edge_weights(
                 ones, ta["edge_dst"], ta["edge_src"], ta["n_edge"],
@@ -219,7 +228,7 @@ class PipelinedRunner:
         buckets: List[TileSet] = (
             list(tiles.buckets) if isinstance(tiles, BucketedTileSet) else [tiles])
         tas = tuple(_tile_arrays(b, self.device) for b in buckets)
-        if self._kernels & set(S.PALLAS_KERNELS):
+        if self._kernels & {S.KERNEL_SPMM, S.KERNEL_SPMM_WEIGHTED}:
             kcs = tuple(self._bucket_const(b, ta, S.KERNEL_SPMM in self._kernels)
                         for b, ta in zip(buckets, tas))
         else:
@@ -390,12 +399,13 @@ class PipelinedRunner:
                         # row-pointer walk replaces the densify pass
                         out = tops.gat_aggregate_csr(
                             kc0["row_ptr"], scores_e, vals, kc0["part_id"],
-                            kc0["flags"], n_parts=P)
+                            kc0["flags"], n_parts=P, part_ptr=kc0["part_ptr"])
                     else:
                         scores = tops.densify_edge_scores(
                             scores_e, ta0["edge_dst"], ta0["n_edge"], dmax=dmax)
                         out = tops.gat_aggregate(scores, vals, kc0["part_id"],
-                                                 kc0["flags"], n_parts=P)
+                                                 kc0["flags"], n_parts=P,
+                                                 part_ptr=kc0["part_ptr"])
                     out = torch.where(kc0["pmask"][:, None, None], out, 0.0)
                     publish_gather(g.acc.recv_id, out)
                     continue
@@ -416,13 +426,14 @@ class PipelinedRunner:
                             w = torch.ones(ta["edge_src"].shape, device=dev)
                         out = tops.spmm_csr(kc["row_ptr"], kc["col"],
                                             w.contiguous(), xsrc, kc["part_id"],
-                                            kc["flags"], n_parts=P)
+                                            kc["flags"], n_parts=P,
+                                            plan=kc["plan"])
                     else:
                         adj = kc["adj"] if w is None else tops.densify_edge_weights(
                             w, ta["edge_dst"], ta["edge_src"], ta["n_edge"],
                             dmax=dmax, smax=ta["src_ids"].shape[1])
                         out = tops.spmm(adj, xsrc, kc["part_id"], kc["flags"],
-                                        n_parts=P)
+                                        n_parts=P, part_ptr=kc["part_ptr"])
                     # partitions with no tile in this bucket: the reference
                     # kernel leaves them unwritten, so the runner masks them
                     total += torch.where(kc["pmask"][:, None, None], out, 0.0)

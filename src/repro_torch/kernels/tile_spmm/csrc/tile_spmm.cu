@@ -10,10 +10,11 @@
 // wrapper turns part_id into partition runs part_ptr (P+1): the tiles of
 // partition p are [part_ptr[p], part_ptr[p+1]).
 //
-// Shared design.  One block of 8 warps owns one (partition, 4 output rows,
+// Shared design of kernels 1, 3 and 4 (kernel 2 walks a CSR plan instead,
+// see its note).  One block of 8 warps owns one (partition, 4 output rows,
 // 128 output columns) piece of the (P, D, F) output and takes its rows one
 // at a time.  For a row, the 8 warps split the work — the dense kernels by
-// column stripes of the row, the CSR kernels by the partition's tiles — and
+// column stripes of the row, the CSR softmax by the partition's tiles — and
 // each warp keeps its own running state in registers: the accumulator over
 // its lane's 4 columns and, for the softmax, the running max m and sum l.
 // The block then merges the 8 states in shared memory and writes the row.
@@ -211,70 +212,158 @@ coo_spmm_kernel(const float* __restrict__ adj, const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // 2. CSR tile SpMM.  Replaces tile_spmm_csr_pallas / _csr_kernel:
 //    out[p, d] = sum_{t in p} sum_{e in [rp[t,d], rp[t,d+1])} w[e] x[col[e]].
-//    Bound: bytes (the row pointers, one column index and weight per edge,
-//    the source rows read, the output), at 2 F flops per edge.  No (D, E)
-//    selector: for row d the 8 warps split the partition's tiles, each lane
-//    loading one tile's run [rp[t,d], rp[t,d+1]); the warp then walks the
-//    non-empty runs 32 edges at a time.  Splitting by tile spreads a hub
-//    row (tens of thousands of in-edges on a power-law graph) over the
-//    block.  Slots at or past rp[t, D] are never read: padding may be NaN.
+//    Bound: bytes (the plan, one slot, column index and weight per edge, the
+//    source rows read, the output), at 2 F flops per edge.
+//    It walks a CSR plan built once per tile set (kernels/tile_spmm/plan.py)
+//    instead of the per-tile row pointers, whose walk read one 32-byte
+//    sector per (tile, row) of the partition, at a stride of D + 1 ints,
+//    more bytes than the whole bound.  The plan lists every row's edge slots
+//    (t E + e) together, cuts each row into chunks of at most 128 edges
+//    and gives each edge its chunk's target row, flagged on the chunk's
+//    last edge.  One warp takes one group: the whole chunks that start in
+//    one 32-edge window of the list — ~10 short rows (3.3 edges a row on
+//    the stand-in), or one chunk of a long row.  Lanes load 32 edges' slot,
+//    target, column and weight at once; the warp then folds the edges'
+//    source rows in, kInFlight rows in flight, each row one coalesced read
+//    (a float4 a lane at F = 128), and stores the row at its chunk's last
+//    edge.  No block barrier, no shared memory, ~10x fewer warps than one
+//    a row, so the slot -> column -> row latency chain is paid per 32
+//    edges.  A hub row (in-degree 37,873 on the power-law stand-in) is
+//    ~300 chunks on as many warps; their partial rows land below the
+//    output, and a second pass (csr_merge_kernel, a block per split row)
+//    sums them in a fixed order: deterministic, no atomics.  Warps past the
+//    groups write the rows with no edge as zeros.  Padded slots (at or past
+//    rp[t, D]) are not in the plan and are never read: padding may be NaN.
 // ---------------------------------------------------------------------------
-template <bool kSoftmax>
+constexpr int kInFlight = 8;   // edge rows loaded before their FMAs
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&v)[VEC], const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Group g = plan edges [group_ptr[g], group_ptr[g+1]); slot[i] = t E + e
+// and edge_tgt[i] = target row (bit 31: last edge of its chunk) of plan
+// edge i.  Warps n_group + z write zero_row[32 z ...].  x (T, S, F); out
+// (n_rows + partials, F).  Lane l holds columns [col, col + VEC), col =
+// (blockIdx.y 32 + l) VEC.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads)
-csr_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col_idx,
-           const float* __restrict__ edge_val, const float* __restrict__ x,
-           const int* __restrict__ part_ptr, float* __restrict__ out,
-           int D, int E, int S, int F) {
-  __shared__ float s_acc[kWarps][kCols];
-  __shared__ float s_m[kWarps], s_l[kWarps];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
-  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
-  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
-  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
-    RowState st;
-    reset(st);
-    // warp w takes tiles t0 + w + 8 k; lane j of a sweep holds tile tb + 8 j
-    for (int tb = t0 + warp; tb < t1; tb += kThreads) {
-      const int tl = tb + kWarps * lane;
-      int rb = 0, re = 0;
-      if (tl < t1) {
-        const int* rp = row_ptr + (size_t)tl * (D + 1) + d;
-        rb = __ldg(rp);
-        re = __ldg(rp + 1);
+csr_spmm_kernel(const int* __restrict__ slot, const int* __restrict__ edge_tgt,
+                const int* __restrict__ group_ptr,
+                const int* __restrict__ zero_row,
+                const int* __restrict__ col_idx, const float* __restrict__ w,
+                const float* __restrict__ x, float* __restrict__ out,
+                int n_group, int n_zero, int E, int S, int F) {
+  const int lane = threadIdx.x % 32;
+  const int g = (int)blockIdx.x * kWarps + (int)threadIdx.x / 32;
+  const int col = ((int)blockIdx.y * 32 + lane) * VEC;
+  const bool has_col = col < F;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  if (g >= n_group) {                            // warp-uniform
+    const int z0 = (g - n_group) * 32;
+    if (z0 >= n_zero) return;
+    const int n = min(32, n_zero - z0);
+    const int row = lane < n ? __ldg(zero_row + z0 + lane) : 0;
+    for (int j = 0; j < n; ++j) {
+      const int r = __shfl_sync(kAll, row, j);
+      if (has_col) store_vec<VEC>(out + (size_t)r * F + col, acc);
+    }
+    return;
+  }
+  const int e_end = __ldg(group_ptr + g + 1);
+  for (int e0 = __ldg(group_ptr + g); e0 < e_end; e0 += 32) {
+    // lane j holds edge e0 + j: its source row (t S + col), weight, target
+    const int e = e0 + lane;
+    int src = 0, tgt = 0;
+    float wv = 0.f;
+    if (e < e_end) {
+      const int s = __ldg(slot + e);
+      tgt = __ldg(edge_tgt + e);
+      src = (s / E) * S + __ldg(col_idx + s);
+      wv = __ldg(w + s);
+    }
+    const int n = min(32, e_end - e0);
+    for (int j = 0; j < n; j += kInFlight) {
+      float v[kInFlight][VEC];
+      float wu[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int jj = j + u;                    // warp-uniform
+        const int r = __shfl_sync(kAll, src, jj & 31);
+        wu[u] = __shfl_sync(kAll, wv, jj & 31);
+        if (jj < n && has_col) {
+          load_vec<VEC>(v[u], x + (size_t)r * F + col);
+        } else {
+          wu[u] = 0.f;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) v[u][i] = 0.f;
+        }
       }
-      unsigned runs = __ballot_sync(kAll, re > rb);
-      while (runs) {
-        const int j = __ffs(runs) - 1;
-        runs &= runs - 1;
-        const int t = tb + kWarps * j;
-        const int e_lo = __shfl_sync(kAll, rb, j);
-        const int e_hi = __shfl_sync(kAll, re, j);
-        for (int e0 = e_lo; e0 < e_hi; e0 += 32) {
-          const int e = e0 + lane;
-          const bool live = e < e_hi;
-          const size_t slot = (size_t)t * E + e;
-          const unsigned mask = __ballot_sync(kAll, live);
-          if constexpr (kSoftmax) {
-            // edge_val = per-edge scores; x = per-edge values (T, E, F)
-            const float pr = softmax_fold(st, live ? __ldg(edge_val + slot) : kNeg,
-                                          live);
-            const float* vt = x + ((size_t)t * E + e0) * F;
-            gather_rows(st, mask, pr,
-                        [&](int jj) { return vt + (size_t)jj * F; }, col, F);
-          } else {
-            // edge_val = per-edge weights; x = source rows (T, S, F)
-            const float w = live ? __ldg(edge_val + slot) : 0.f;
-            const int src = live ? __ldg(col_idx + slot) : 0;
-            const float* xt = x + (size_t)t * S * F;
-            gather_rows(st, mask, w, [&](int jj) {
-              return xt + (size_t)__shfl_sync(kAll, src, jj) * F;
-            }, col, F);
-          }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(wu[u], v[u][i], acc[i]);
+        const int t = __shfl_sync(kAll, tgt, (j + u) & 31);
+        if (j + u < n && t < 0) {                // the chunk's last edge
+          if (has_col) store_vec<VEC>(out + (size_t)(t & 0x7fffffff) * F + col, acc);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
         }
       }
     }
-    merge_and_store<kSoftmax>(st, s_acc, s_m, s_l, out, p, d, D, F);
+  }
+}
+
+// Split row i = split_row[i] sums its partial rows n_rows + [split_ptr[i],
+// split_ptr[i+1]): the 8 warps take every 8th partial, then add in order.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+csr_merge_kernel(const int* __restrict__ split_row,
+                 const int* __restrict__ split_ptr, float* __restrict__ out,
+                 int n_rows, int F) {
+  __shared__ float s_acc[kWarps][32 * VEC];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x;
+  const int col = ((int)blockIdx.y * 32 + lane) * VEC;
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  if (col < F) {
+    const int p1 = split_ptr[i + 1];
+#pragma unroll 4
+    for (int p = split_ptr[i] + warp; p < p1; p += kWarps) {
+      float v[VEC];
+      load_vec<VEC>(v, out + (size_t)(n_rows + p) * F + col);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] += v[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) s_acc[warp][VEC * lane + k] = acc[k];
+  __syncthreads();
+  const int cc = (int)blockIdx.y * 32 * VEC + (int)threadIdx.x;
+  if (threadIdx.x < 32 * VEC && cc < F) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += s_acc[w][threadIdx.x];
+    out[(size_t)split_row[i] * F + cc] = a;
   }
 }
 
@@ -318,13 +407,63 @@ coo_softmax_kernel(const float* __restrict__ scores,
   }
 }
 
+// ---------------------------------------------------------------------------
 // 4. CSR online segment softmax.  Replaces segment_softmax_csr_pallas /
 //    _csr_softmax_kernel: the same softmax over each row's CSR runs, with
 //    per-edge scores (T, E) and gathered per-edge values (T, E, F).
 //    Bound: bytes (row pointers, one score and one F-wide value row per
-//    edge, the output), at about 2 F flops and one exp per edge.  It is
-//    csr_kernel<true>: the tile split and run walk of kernel 2, each
-//    32-edge piece of a run folded into (m, l, acc) like kernel 3.
+//    edge, the output), at about 2 F flops and one exp per edge.  For row d
+//    the 8 warps split the partition's tiles, each lane loading one tile's
+//    run [rp[t,d], rp[t,d+1]); the warp then walks the non-empty runs 32
+//    edges at a time, folding each piece into (m, l, acc) like kernel 3.
+//    Splitting by tile spreads a hub row over the block.  Slots at or past
+//    rp[t, D] are never read: padding may be NaN.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+csr_softmax_kernel(const int* __restrict__ row_ptr,
+                   const float* __restrict__ scores,
+                   const float* __restrict__ vals,
+                   const int* __restrict__ part_ptr, float* __restrict__ out,
+                   int D, int E, int F) {
+  __shared__ float s_acc[kWarps][kCols];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
+  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
+  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
+  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
+    RowState st;
+    reset(st);
+    // warp w takes tiles t0 + w + 8 k; lane j of a sweep holds tile tb + 8 j
+    for (int tb = t0 + warp; tb < t1; tb += kThreads) {
+      const int tl = tb + kWarps * lane;
+      int rb = 0, re = 0;
+      if (tl < t1) {
+        const int* rp = row_ptr + (size_t)tl * (D + 1) + d;
+        rb = __ldg(rp);
+        re = __ldg(rp + 1);
+      }
+      unsigned runs = __ballot_sync(kAll, re > rb);
+      while (runs) {
+        const int j = __ffs(runs) - 1;
+        runs &= runs - 1;
+        const int t = tb + kWarps * j;
+        const int e_lo = __shfl_sync(kAll, rb, j);
+        const int e_hi = __shfl_sync(kAll, re, j);
+        for (int e0 = e_lo; e0 < e_hi; e0 += 32) {
+          const int e = e0 + lane;
+          const bool live = e < e_hi;
+          const float pr = softmax_fold(
+              st, live ? __ldg(scores + (size_t)t * E + e) : kNeg, live);
+          const float* vt = vals + ((size_t)t * E + e0) * F;
+          gather_rows(st, __ballot_sync(kAll, live), pr,
+                      [&](int jj) { return vt + (size_t)jj * F; }, col, F);
+        }
+      }
+    }
+    merge_and_store<true>(st, s_acc, s_m, s_l, out, p, d, D, F);
+  }
+}
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
@@ -346,13 +485,33 @@ int zipper_tile_spmm_coo(const void* adj, const void* x, const void* part_ptr,
   return (int)cudaGetLastError();
 }
 
-int zipper_tile_spmm_csr(const void* row_ptr, const void* col, const void* w,
-                         const void* x, const void* part_ptr, void* out,
-                         int P, int D, int E, int S, int F, void* stream) {
-  if (P > 0 && D > 0 && F > 0) {
-    csr_kernel<false><<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)row_ptr, (const int*)col, (const float*)w,
-        (const float*)x, (const int*)part_ptr, (float*)out, D, E, S, F);
+int zipper_tile_spmm_csr(const void* slot, const void* edge_tgt,
+                         const void* group_ptr, const void* zero_row,
+                         const void* col, const void* w, const void* x,
+                         const void* split_row, const void* split_ptr, void* out,
+                         int n_group, int n_zero, int n_split, int n_rows,
+                         int E, int S, int F, void* stream) {
+  const int n_warps = n_group + ceil_div(n_zero, 32);
+  if (n_warps > 0 && F > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const bool vec4 = F % 4 == 0 && (size_t)x % 16 == 0 && (size_t)out % 16 == 0;
+    const int cols = vec4 ? 128 : 32;
+    const dim3 grid(ceil_div(n_warps, kWarps), ceil_div(F, cols));
+    const dim3 merge(n_split, ceil_div(F, cols));
+#define ZIPPER_CSR(VEC)                                                        \
+    csr_spmm_kernel<VEC><<<grid, kThreads, 0, st>>>(                           \
+        (const int*)slot, (const int*)edge_tgt, (const int*)group_ptr,         \
+        (const int*)zero_row, (const int*)col, (const float*)w,                \
+        (const float*)x, (float*)out, n_group, n_zero, E, S, F);               \
+    if (n_split > 0)                                                           \
+      csr_merge_kernel<VEC><<<merge, kThreads, 0, st>>>(                       \
+          (const int*)split_row, (const int*)split_ptr, (float*)out, n_rows, F);
+    if (vec4) {
+      ZIPPER_CSR(4)
+    } else {
+      ZIPPER_CSR(1)
+    }
+#undef ZIPPER_CSR
   }
   return (int)cudaGetLastError();
 }
@@ -373,9 +532,9 @@ int zipper_segment_softmax_csr(const void* row_ptr, const void* scores,
                                void* out, int P, int D, int E, int F,
                                void* stream) {
   if (P > 0 && D > 0 && F > 0) {
-    csr_kernel<true><<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)row_ptr, nullptr, (const float*)scores,
-        (const float*)vals, (const int*)part_ptr, (float*)out, D, E, 0, F);
+    csr_softmax_kernel<<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)row_ptr, (const float*)scores, (const float*)vals,
+        (const int*)part_ptr, (float*)out, D, E, F);
   }
   return (int)cudaGetLastError();
 }

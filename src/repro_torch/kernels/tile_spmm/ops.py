@@ -7,7 +7,9 @@ the device for per-edge values computed at run time.  ``spmm`` /
 ``gat_aggregate`` / ``spmm_csr`` / ``gat_aggregate_csr`` are the entry
 points the runner calls: CPU tensors take the plain PyTorch version
 (``ref.py``), CUDA tensors launch the hand-written kernel (``kernel.py``),
-which raises rather than falling back.
+which raises rather than falling back.  The runner passes what it built at
+bind time: ``part_ptr`` (partition runs) and, for the CSR SpMM, the CSR
+``plan``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from ...core.tiling import BucketedTileSet, TileSet
 from . import kernel as K
 from . import ref as R
+from .plan import CsrPlan
 
 _NEG = -1e30  # matches the segment-softmax kernel's "no edge" sentinel
 
@@ -99,16 +102,20 @@ def densify_edge_scores(scores, edge_dst, n_edge, *, dmax: int) -> torch.Tensor:
     return out.index_put_((t, edge_dst.long(), e), s)
 
 
-def spmm(adj, xsrc, part_id, flags, *, n_parts: int) -> torch.Tensor:
+def spmm(adj, xsrc, part_id, flags, *, n_parts: int,
+         part_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     if adj.device.type == "cpu":
         return R.tile_spmm_ref(adj, xsrc, part_id, n_parts)
-    return K.tile_spmm_cuda(adj, xsrc, part_id, flags, n_parts=n_parts)
+    return K.tile_spmm_cuda(adj, xsrc, part_id, flags, n_parts=n_parts,
+                            part_ptr=part_ptr)
 
 
-def gat_aggregate(scores, vals, part_id, flags, *, n_parts: int) -> torch.Tensor:
+def gat_aggregate(scores, vals, part_id, flags, *, n_parts: int,
+                  part_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     if scores.device.type == "cpu":
         return R.segment_softmax_ref(scores, vals, part_id, n_parts)
-    return K.segment_softmax_cuda(scores, vals, part_id, flags, n_parts=n_parts)
+    return K.segment_softmax_cuda(scores, vals, part_id, flags, n_parts=n_parts,
+                                  part_ptr=part_ptr)
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +123,21 @@ def gat_aggregate(scores, vals, part_id, flags, *, n_parts: int) -> torch.Tensor
 # ``edge_src`` and weights/scores stay per-edge vectors.
 # ---------------------------------------------------------------------------
 
-def spmm_csr(row_ptr, col, w, xsrc, part_id, flags, *,
-             n_parts: int) -> torch.Tensor:
+def spmm_csr(row_ptr, col, w, xsrc, part_id, flags, *, n_parts: int,
+             plan: Optional[CsrPlan] = None) -> torch.Tensor:
+    """``plan`` (:func:`~.plan.csr_plan` of these tiles): the CUDA kernel
+    walks it; on the CPU the plain version walks it the same way."""
     if row_ptr.device.type == "cpu":
+        if plan is not None:
+            return R.tile_spmm_csr_plan_ref(plan, col, w, xsrc, n_parts)
         return R.tile_spmm_csr_ref(row_ptr, col, w, xsrc, part_id, n_parts)
     return K.tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags,
-                                n_parts=n_parts)
+                                n_parts=n_parts, plan=plan)
 
 
-def gat_aggregate_csr(row_ptr, scores, vals, part_id, flags, *,
-                      n_parts: int) -> torch.Tensor:
+def gat_aggregate_csr(row_ptr, scores, vals, part_id, flags, *, n_parts: int,
+                      part_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     if row_ptr.device.type == "cpu":
         return R.segment_softmax_csr_ref(row_ptr, scores, vals, part_id, n_parts)
     return K.segment_softmax_csr_cuda(row_ptr, scores, vals, part_id, flags,
-                                      n_parts=n_parts)
+                                      n_parts=n_parts, part_ptr=part_ptr)

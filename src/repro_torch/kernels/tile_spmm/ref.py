@@ -5,6 +5,8 @@ CPU path of :mod:`.ops` and the yardstick ``chip_smoke.py`` and the tests
 hold each kernel against.  The CSR versions select the real edge slots
 (``e < row_ptr[t, -1]``) before touching any value, so padded slots may hold
 NaN, and they never build the TPU's (T, D, E) row selector.
+``tile_spmm_csr_plan_ref`` is the CSR SpMM walked through a
+:class:`~.plan.CsrPlan`, as the CUDA kernel walks it.
 """
 from __future__ import annotations
 
@@ -41,6 +43,26 @@ def tile_spmm_csr_ref(row_ptr, col, w, xsrc, part_id, n_parts: int) -> torch.Ten
     msg = w.float()[t, slot, None] * xsrc.float()[t, col.long()[t, slot]]
     out = torch.zeros((n_parts * D, F), dtype=torch.float32, device=xsrc.device)
     return out.index_add_(0, dest, msg).view(n_parts, D, F)
+
+
+def tile_spmm_csr_plan_ref(plan, col, w, xsrc, n_parts: int) -> torch.Tensor:
+    """The CSR SpMM as the kernel walks it: every edge of ``plan``
+    (:class:`~.plan.CsrPlan`) adds into its chunk's target row, rows with
+    no edge stay 0, then each split row sums its partial rows.  col/w
+    (T, E); xsrc (T, S, F)."""
+    T, E = col.shape
+    S, F = xsrc.shape[-2:]
+    slot = plan.slot.long()
+    src = (slot // E) * S + col.reshape(-1).long()[slot]
+    msg = w.reshape(-1).float()[slot, None] * xsrc.reshape(T * S, F).float()[src]
+    buf = torch.zeros((plan.n_rows + plan.n_partial, F), dtype=torch.float32,
+                      device=xsrc.device)
+    buf.index_add_(0, plan.edge_tgt.long() & 0x7FFFFFFF, msg)
+    ptr = plan.split_ptr.long()
+    owner = torch.repeat_interleave(plan.split_row.long(), ptr[1:] - ptr[:-1])
+    out = buf[:plan.n_rows]
+    out.index_add_(0, owner, buf[plan.n_rows:])
+    return out.view(n_parts, -1, F)
 
 
 def segment_softmax_csr_ref(row_ptr, scores, vals, part_id,

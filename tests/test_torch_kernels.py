@@ -22,6 +22,8 @@ from repro_torch.gnn import graphs as tgraphs
 from repro_torch.kernels import segment_softmax as tsoftmax
 from repro_torch.kernels.tile_spmm import kernel as tkernel
 from repro_torch.kernels.tile_spmm import ops as tops
+from repro_torch.kernels.tile_spmm import ref as tref
+from repro_torch.kernels.tile_spmm.plan import LAST, csr_plan
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 SHAPES = [(120, 500, 4, 4, 16), (80, 200, 2, 5, 8), (50, 600, 6, 2, 32)]
@@ -276,6 +278,146 @@ def test_partition_without_tiles_gives_zero(layout, rng):
         assert out.shape == (P, D, F)
         assert torch.count_nonzero(out[2:]) == 0
         assert torch.count_nonzero(out[:2]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the CSR plan: built once per tile set, walked by the CSR SpMM kernel
+# ---------------------------------------------------------------------------
+
+def _plan_graph(case):
+    """CSR tiles for a plan case: the SHAPES graphs, a power-law graph with
+    a hub row of 300 in-edges (longer than a chunk), and a graph whose
+    destinations leave the upper partitions without a tile."""
+    if isinstance(case, tuple):
+        V, E, p, s, _ = case
+        return _tiles(V, E, p, s, layout="csr")
+    if case == "hub":
+        base = jgraphs.random_graph(200, 900, seed=7, model="powerlaw")
+        hub_src = np.random.default_rng(7).integers(0, 200, 300).astype(np.int32)
+        g = jgraphs.Graph(src=np.concatenate([base.src, hub_src]),
+                          dst=np.concatenate([base.dst, np.full(300, 5, np.int32)]),
+                          n_vertices=200)
+        return g, jtiling.grid_tile(g, 3, 2, sparse=True, layout="csr")
+    rng = np.random.default_rng(3)
+    g = jgraphs.Graph(src=rng.integers(0, 80, 300).astype(np.int32),
+                      dst=rng.integers(0, 40, 300).astype(np.int32), n_vertices=80)
+    return g, jtiling.grid_tile(g, 4, 2, sparse=True, layout="csr")
+
+
+PLAN_CASES = SHAPES + ["hub", "empty_partition"]
+PLAN_IDS = [f"{c[0]}v{c[1]}e" for c in SHAPES] + ["hub", "empty_partition"]
+
+
+def _plan(cs, chunk_size):
+    return csr_plan(_t(cs.row_ptr, torch.int32), _t(cs.part_id, torch.int32),
+                    cs.n_dst_parts, cs.edge_src.shape[1], chunk_size=chunk_size)
+
+
+@pytest.mark.parametrize("chunk_size", [4, 128])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=PLAN_IDS)
+def test_csr_plan_covers_every_real_slot_once(case, chunk_size):
+    _, cs = _plan_graph(case)
+    plan = _plan(cs, chunk_size)
+    T, E = cs.edge_src.shape
+    real = [t * E + e for t in range(T) for e in range(int(cs.row_ptr[t, -1]))]
+    np.testing.assert_array_equal(np.sort(plan.slot.numpy()), real)
+    # row r's edges are exactly the slots whose CSR run is row d of a tile of
+    # partition p, r = p D + d
+    D = cs.row_ptr.shape[1] - 1
+    start = plan.row_start.numpy()
+    for r in range(plan.n_rows):
+        p, d = divmod(r, D)
+        want = [t * E + e for t in np.nonzero(cs.part_id == p)[0]
+                for e in range(cs.row_ptr[t, d], cs.row_ptr[t, d + 1])]
+        assert plan.slot.numpy()[start[r]:start[r + 1]].tolist() == want
+    np.testing.assert_array_equal(plan.zero_row.numpy(),
+                                  np.nonzero(np.diff(start) == 0)[0])
+
+
+@pytest.mark.parametrize("chunk_size", [4, 128])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=PLAN_IDS)
+def test_csr_plan_chunks_stay_in_one_row(case, chunk_size):
+    """Chunks (runs ending at a flagged edge) hold at most chunk_size edges
+    of one row; a split row's chunks target its own partial rows in order;
+    warp groups start on chunk starts."""
+    _, cs = _plan_graph(case)
+    plan = _plan(cs, chunk_size)
+    start = plan.row_start.numpy()
+    tgt = plan.edge_tgt.numpy().astype(np.int64)
+    row_of = np.searchsorted(start, np.arange(tgt.size), side="right") - 1
+    ends = np.nonzero(tgt < 0)[0] + 1
+    assert ends.size == 0 or ends[-1] == tgt.size
+    chunk_starts = np.concatenate([[0], ends[:-1]]) if ends.size else ends
+    split = dict(zip(plan.split_row.tolist(),
+                     zip(plan.split_ptr.tolist()[:-1], plan.split_ptr.tolist()[1:])))
+    seen = {}
+    for a, b in zip(chunk_starts, ends):
+        assert 0 < b - a <= chunk_size
+        rows = set(row_of[a:b].tolist())
+        assert len(rows) == 1
+        row = rows.pop()
+        assert len(set((tgt[a:b] & 0x7FFFFFFF).tolist())) == 1
+        t = int(tgt[b - 1] & 0x7FFFFFFF)
+        assert (tgt[a:b - 1] >= 0).all() and tgt[b - 1] < 0
+        if row in split:
+            lo, hi = split[row]
+            assert t == plan.n_rows + lo + seen.get(row, 0) and t < plan.n_rows + hi
+            seen[row] = seen.get(row, 0) + 1
+        else:
+            assert t == row and np.diff(start)[row] <= chunk_size
+    assert all(seen[r] == hi - lo for r, (lo, hi) in split.items())
+    assert plan.n_partial == plan.split_ptr[-1]
+    gp = plan.group_ptr.numpy()
+    assert gp[0] == 0 and gp[-1] == tgt.size
+    assert set(gp[:-1].tolist()) <= set(chunk_starts.tolist())
+    assert LAST == -2 ** 31
+
+
+@pytest.mark.parametrize("chunk_size", [4, 128])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=PLAN_IDS)
+def test_csr_plan_walk_matches_reference_and_pallas(case, chunk_size, rng):
+    """The plain walk of the plan (what the CUDA kernel computes) against
+    the port's and repro's plain versions and the Pallas kernel, with NaN
+    in every padded slot."""
+    g, cs = _plan_graph(case)
+    F = 8
+    x = rng.standard_normal((g.n_vertices, F)).astype(np.float32)
+    w_g = rng.standard_normal(g.n_edges).astype(np.float32)
+    xs = np.asarray(jops.gather_sources(cs, x))
+    w = _per_edge(cs, w_g, poison=np.nan)
+    args = (_t(cs.row_ptr, torch.int32), _t(cs.edge_src, torch.int32), _t(w),
+            _t(xs), _t(cs.part_id, torch.int32))
+    flags = jkernel.tile_flags(cs.part_id)
+    got = tops.spmm_csr(*args, _t(flags, torch.int32), n_parts=cs.n_dst_parts,
+                        plan=_plan(cs, chunk_size)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(
+        got, tref.tile_spmm_csr_ref(*args, cs.n_dst_parts).numpy(), **TOL)
+    w0 = _per_edge(cs, w_g, poison=0.0)    # the JAX versions multiply padding
+    jargs = (jnp.asarray(cs.row_ptr), jnp.asarray(cs.edge_src), jnp.asarray(w0),
+             xs, jnp.asarray(cs.part_id))
+    # the Pallas kernel leaves partitions without a tile unwritten (the
+    # runner masks them); the plan writes zeros there
+    live = np.isin(np.arange(cs.n_dst_parts), cs.part_id)
+    assert not got[~live].any()
+    np.testing.assert_allclose(
+        got[live], np.asarray(jref.tile_spmm_csr_ref(*jargs, cs.n_dst_parts))[live],
+        **TOL)
+    np.testing.assert_allclose(
+        got[live], np.asarray(jkernel.tile_spmm_csr_pallas(
+            *jargs, jnp.asarray(flags), n_parts=cs.n_dst_parts))[live], **TOL)
+
+
+def test_partition_ptr_matches_the_device_runs():
+    pid = np.array([0, 0, 1, 3, 3, 3], np.int32)
+    ptr = tkernel.partition_ptr(pid, 5)
+    np.testing.assert_array_equal(ptr, [0, 2, 3, 3, 6, 6])
+    np.testing.assert_array_equal(
+        tkernel._part_ptr(_t(pid, torch.int32), 5, None).numpy(), ptr)
+    given = _t(ptr, torch.int32)
+    assert tkernel._part_ptr(_t(pid, torch.int32), 5, given) is given
+    with pytest.raises(ValueError, match="shape"):
+        tkernel._part_ptr(_t(pid, torch.int32), 4, given)
 
 
 # ---------------------------------------------------------------------------

@@ -193,6 +193,42 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
         wrapper(*zeros)
 
 
+# the flash kernel's tile configurations at the shapes of chip_smoke.py's
+# phases 6 and 7 (B, Sq, D, Dv): MLA and GQA prefill, the ragged and
+# head-dim-256 checks, a decode step, the 8-token forward check
+PATH_FLASH = {"mla_prefill": ((4096, 192, 128), (8, 2, 187_392)),
+              "gqa_prefill": ((4096, 128, 128), (8, 2, 154_624)),
+              "gqa_ragged": ((1000, 128, 128), (8, 2, 154_624)),
+              "window_d256": ((65, 256, 256), (4, 4, 136_192)),
+              "gqa_decode": ((1, 128, 128), (1, 2, 65_024)),
+              "forward_check": ((8, 192, 128), (1, 2, 69_120))}
+
+
+@pytest.mark.parametrize("case", list(PATH_FLASH))
+def test_flash_launch_config_at_the_path_shapes(case):
+    """The wrapper picks the tile configuration; its dynamic shared memory
+    fits an H100 block (227 KB) in fp32 and bf16."""
+    (Sq, D, Dv), want = PATH_FLASH[case]
+    assert tflash_kernel.launch_config(Sq, D, Dv, torch.float32) == want
+    for dt in (torch.float32, torch.bfloat16):
+        assert tflash_kernel.launch_config(Sq, D, Dv, dt)[2] <= tflash_kernel.MAX_SMEM
+    assert tflash_kernel.MAX_SMEM == 232_448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launch_config_fits_every_head_dim(dtype):
+    """Every (Sq, D, Dv) the wrapper accepts gets an instantiated
+    configuration (rows in {1, 4, 8}, nv in {1, 2, 4}, no 8-row tile with
+    nv 4) within the shared-memory limit."""
+    for Sq in (1, 16, 17, 64, 65, 4096):
+        for D in range(4, 257, 4):
+            for Dv in (4, 64, 68, 128, 132, 192, 256):
+                rows, nv, smem = tflash_kernel.launch_config(Sq, D, Dv, dtype)
+                assert rows in (1, 4, 8) and nv in (1, 2, 4) and Dv <= 64 * nv
+                assert not (rows == 8 and nv == 4)
+                assert smem <= tflash_kernel.MAX_SMEM
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's limits for the CUDA kernels: room above fp32 rounding, none
 # for a wrong result

@@ -119,6 +119,40 @@ def test_bind_run_with_reuses_one_runner():
         runner.bind(ttiling.grid_tile(gs[1], 2, 2, layout="csr"))
 
 
+@pytest.mark.parametrize("name", ["gcn", "gin"])
+def test_csr_bind_carries_the_plan(name, monkeypatch):
+    """On CSR tiles `bind` builds each bucket's CSR plan and partition runs
+    once; every SpMM call walks that plan (the kernel's order) and the
+    result still matches the oracle, on a graph whose hub row is split into
+    chunks."""
+    from repro_torch.kernels.tile_spmm import ops as tops
+    from repro_torch.kernels.tile_spmm import plan as tplan
+    g, jtr, ttr, params, inputs = _setup(name, 2, V=90, E=420)
+    hub = 2 * tplan.CHUNK_SIZE          # parallel in-edges of vertex 7
+    src = np.concatenate([g.src, np.arange(hub, dtype=np.int32) % 90])
+    dst = np.concatenate([g.dst, np.full(hub, 7, np.int32)])
+    g = jgraphs.Graph(src=src, dst=dst, n_vertices=90)
+    inputs = jmodels.init_inputs(jtr, g, seed=2)
+    oracle = np.asarray(jexecutor.run_reference(jtr, g, inputs, params)[0])
+    tiles = ttiling.build_tiles(g, 3, 3, n_buckets=2, layout="csr")[0]
+    runner = tpipeline.PipelinedRunner(tcompiler.compile_gnn(ttr), g, tiles,
+                                       device="cpu")
+    operands = runner.bind(tiles)
+    kcs = operands[1]
+    assert len(kcs) == 2 and any(kc["plan"].split_row.numel() for kc in kcs)
+    for kc, b in zip(kcs, tiles.buckets):
+        np.testing.assert_array_equal(
+            kc["part_ptr"].numpy()[1:], np.cumsum(np.bincount(
+                b.part_id, minlength=tiles.n_dst_parts)))
+    plans = []
+    walk = tops.R.tile_spmm_csr_plan_ref
+    monkeypatch.setattr(tops.R, "tile_spmm_csr_plan_ref",
+                        lambda plan, *a: plans.append(plan) or walk(plan, *a))
+    got = runner(inputs, params, operands=operands)[0].numpy()
+    assert len(plans) == 4 and {id(p) for p in plans} == {id(kc["plan"]) for kc in kcs}
+    assert _err(name, got, oracle) < _tol(name)
+
+
 def test_entry_points_run_on_cuda_unless_told_otherwise():
     """With no card visible, omitting ``device`` raises instead of quietly
     running on the CPU."""
