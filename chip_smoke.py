@@ -12,8 +12,10 @@ Phases, each printing one JSON line or more:
    PyTorch version on the card, at the shapes of phases 4 and 5, with its
    median time over CUDA-event-timed runs, the plain version's time, the
    time of one PyTorch library call where one exists, and its bound; the
-   CSR SpMM's plan is built first (its build time is its own field), and
-   the CSR SpMM, given its plan, runs once with host syncs made errors;
+   CSR SpMM's plan is built first (its build time is its own field); the
+   COO SpMM, given its partition runs, and the CSR SpMM, given its plan,
+   run once each with host syncs made errors; the COO SpMM also runs at
+   the off-path shapes of ``COO_OFF_PATH``;
 4. serving (COO tiles): ``InferenceServer`` on 2-layer gcn and gat at width
    128 over a batch of 16 power-law graphs (2,000 vertices, 16,000 edges
    each), submitted three times — one build, then cache hits — against the
@@ -33,8 +35,10 @@ Phases, each printing one JSON line or more:
    prefill of 1,000 tokens, whose length fits neither the query tile nor
    the key tile, and (2, 65 queries, 130 keys, 4 / 2 heads, head dim 256,
    causal, window 30, ``kv_len``), with the same timings and bounds as
-   phase 3; elementwise limits scaled by each sum's rounding magnitude (see
-   ``LM_KERNEL_TOL``); one flash call with host syncs made errors;
+   phase 3; the grouped FFN also at the off-path shapes of
+   ``FFN_OFF_PATH``; elementwise limits scaled by each sum's rounding
+   magnitude (see ``LM_KERNEL_TOL``); one flash call and one grouped-FFN
+   call with host syncs made errors;
 7. LM serving: for qwen2-1.5b (all 28 layers) and deepseek-v2-236b (full
    width, depth cut to 2 layers: the leading dense layer and one MoE
    layer), random fp32 weights from a seed; ``serve_requests`` with
@@ -103,6 +107,23 @@ LM_KERNEL_TOL = {"flash_attention": (1e-6, 1e-5), "grouped_ffn": (1e-6, 1e-7)}
 BF16_ULP = 2.0 ** -7
 LM_MODEL_TOL = {"dense": 2e-3, "moe": 5e-3}   # decode vs forward, x max(1, |ref|)
 PREFILL_LEN = 4096
+# Off the path: shapes that reach the tail paths of the COO tile SpMM
+# (phase 3) and the grouped FFN (phase 6), held at the same limits.
+# COO: tiles per partition (a 0 is a partition with no tile), rows D,
+# columns S (37: not a multiple of 4, so the adjacency is read a float a
+# lane), width F (20: lanes past the row idle; 130: not a multiple of 4, x
+# read a column a lane, in two 128-column slices).
+COO_OFF_PATH = [
+    dict(case="f20_s37", parts=(3, 0, 2, 4), D=70, S=37, F=20),
+    dict(case="f130", parts=(2, 5, 0), D=64, S=584, F=130),
+]
+# grouped FFN: d and f multiples of 8 but not of the 32-deep contraction
+# step nor of the 128 / 256-column tiles; C past the last full 8-row slice
+# (44) and over two row tiles (72); counts mixing 0, C and partial ones
+FFN_OFF_PATH = [
+    dict(case="tails", C=44, d=200, f=72, counts=(0, 44, 17, 44, 1, 30, 8, 40)),
+    dict(case="two_row_tiles", C=72, d=136, f=264, counts=(72, 0, 67, 5)),
+]
 
 
 def emit(obj) -> None:
@@ -159,6 +180,7 @@ def scaled_err(got, ref) -> float:
 # ---------------------------------------------------------------------------
 
 def kernel_checks(serve_tiles, csr_tiles, dev):
+    import numpy as np
     import torch
     from repro_torch.kernels.tile_spmm import kernel as K
     from repro_torch.kernels.tile_spmm import ops, ref
@@ -172,7 +194,7 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     rows = []
 
     def check(name, kernel, plain, magnitude, n_bytes, n_flops, library=None,
-              note=None, **extra):
+              note=None, primary=True, **extra):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = (got - want).abs()
@@ -189,7 +211,8 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
                    library_ms=None if library is None else time_ms(library),
                    shapes=note, **extra)
         emit(dict(phase="kernel_check", **row))
-        rows.append(row)
+        if primary:
+            rows.append(row)
 
     # -- COO operands at the serving batch's shapes (phase 4)
     ts = serve_tiles
@@ -207,9 +230,13 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
                                    dmax=D, smax=S)
     xsrc = randn(T, S, WIDTH)
     out_bytes = P * D * WIDTH * 4
-    check("tile_spmm",
-          lambda: K.tile_spmm_cuda(adj, xsrc, part_id, flags, n_parts=P,
-                                   part_ptr=part_ptr),
+
+    def coo_spmm():
+        return K.tile_spmm_cuda(adj, xsrc, part_id, flags, n_parts=P,
+                                part_ptr=part_ptr)
+
+    without_host_sync(coo_spmm)
+    check("tile_spmm", coo_spmm,
           lambda: ref.tile_spmm_ref(adj, xsrc, part_id, P),
           lambda: ref.tile_spmm_ref(adj.abs(), xsrc.abs(), part_id, P),
           adj.numel() * 4 + n_src * WIDTH * 4 + T * 4 + out_bytes,
@@ -218,6 +245,29 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
           note=dict(T=T, D=D, S=S, F=WIDTH, P=P, edges=n_edge,
                     library="torch.bmm(adj, xsrc): the per-tile product "
                             "without the partition sum"))
+
+    # the COO SpMM off the path (COO_OFF_PATH): ~0.5 % of the adjacency
+    # nonzero, as on the path
+    for c in COO_OFF_PATH:
+        Tc, Dc, Sc, Fc = sum(c["parts"]), c["D"], c["S"], c["F"]
+        Pc = len(c["parts"])
+        pid_np = np.repeat(np.arange(Pc, dtype=np.int32), c["parts"])
+        pid = torch.as_tensor(pid_np, device=dev)
+        ptr = torch.as_tensor(K.partition_ptr(pid_np, Pc), device=dev)
+        a = randn(Tc, Dc, Sc) * (torch.rand((Tc, Dc, Sc), generator=gen, device=dev) < 0.005)
+        xc = randn(Tc, Sc, Fc)
+        fl = torch.as_tensor(K.tile_flags(pid_np), device=dev)
+        edges = int((a != 0).sum())
+        check("tile_spmm",
+              lambda: K.tile_spmm_cuda(a, xc, pid, fl, n_parts=Pc, part_ptr=ptr),
+              lambda: ref.tile_spmm_ref(a, xc, pid, Pc),
+              lambda: ref.tile_spmm_ref(a.abs(), xc.abs(), pid, Pc),
+              a.numel() * 4 + xc.numel() * 4 + Tc * 4 + Pc * Dc * Fc * 4,
+              2 * Fc * edges, library=lambda: torch.bmm(a, xc),
+              note=dict(T=Tc, D=Dc, S=Sc, F=Fc, P=Pc, edges=edges,
+                        tiles_per_partition=list(c["parts"])),
+              primary=False, case=c["case"])
+        del a, xc
 
     scores = ops.densify_edge_scores(randn(T, E), edge_dst, n_edge_t, dmax=D)
     vals = randn(T, E, WIDTH)
@@ -424,6 +474,8 @@ def _flash_keep(B, Sq, Sk, causal, window, kv_len, dev):
 
 def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
                      cache_len=40, decode_batch=4, runs=5):
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -553,11 +605,15 @@ def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
             live_experts = int((counts > 0).sum())
             n_bytes = el * (live_experts * 3 * d * f + live_rows * d + E * cap * d) + 4 * E
             args = (buckets, w["wg"], w["wu"], w["wd"], counts)
+            cfg = GK.launch_config(E, cap, d, f, tdt)
+            issued = GK.issued_rows(counts.tolist(), cap, cfg)
 
             def library(b=buckets, w=w):
                 h = torch.bmm(b, w["wg"])
                 return torch.bmm(F.silu(h) * torch.bmm(b, w["wu"]), w["wd"])
 
+            if case == "prefill_chunk" and dtype == "float32":
+                without_host_sync(lambda: GK.grouped_ffn_cuda(*args))
             check("grouped_ffn", case, dtype,
                   lambda: GK.grouped_ffn_cuda(*args),
                   lambda: grouped_ffn_ref(*args),
@@ -565,10 +621,33 @@ def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
                   n_bytes, 2 * 3 * d * f * live_rows, library=library,
                   library_label=f"torch.bmm x3 + silu over all {E} experts, dead rows too",
                   shapes=dict(E=E, C=cap, d=d, f=f, tokens=n_tok, top_k=mo.top_k,
-                              live_rows=live_rows, live_experts=live_experts),
+                              live_rows=live_rows, live_experts=live_experts,
+                              issued_rows=issued, config=dataclasses.asdict(cfg)),
                   primary=(case == "prefill_chunk" and dtype == "float32"))
             del x, r, buckets, args
         del w
+        # off the path (FFN_OFF_PATH): every row of the buckets nonzero, so
+        # rows at or past the count must come out zero whatever they hold
+        for c in FFN_OFF_PATH:
+            Ec, C, dc, fc = len(c["counts"]), c["C"], c["d"], c["f"]
+            a_ = (randn(Ec, C, dc).to(tdt), randn(Ec, dc, fc, scale=dc ** -0.5).to(tdt),
+                  randn(Ec, dc, fc, scale=dc ** -0.5).to(tdt),
+                  randn(Ec, fc, dc, scale=fc ** -0.5).to(tdt),
+                  torch.tensor(c["counts"], dtype=torch.int32, device=dev))
+            live_rows, live_experts = sum(c["counts"]), sum(n > 0 for n in c["counts"])
+            check("grouped_ffn", c["case"], dtype,
+                  lambda: GK.grouped_ffn_cuda(*a_),
+                  lambda: grouped_ffn_ref(*a_),
+                  lambda: grouped_ffn_magnitude(*a_),
+                  el * (live_experts * 3 * dc * fc + live_rows * dc + Ec * C * dc) + 4 * Ec,
+                  2 * 3 * dc * fc * live_rows,
+                  library=lambda: torch.bmm(F.silu(torch.bmm(a_[0], a_[1]))
+                                            * torch.bmm(a_[0], a_[2]), a_[3]),
+                  library_label=f"torch.bmm x3 + silu over all {Ec} experts, dead rows too",
+                  shapes=dict(E=Ec, C=C, d=dc, f=fc, counts=list(c["counts"]),
+                              config=dataclasses.asdict(GK.launch_config(Ec, C, dc, fc, tdt))),
+                  primary=False)
+            del a_
     del w32, router
     torch.cuda.empty_cache()
     require(not failed, "; ".join(failed))

@@ -3,7 +3,8 @@
 The wrapper checks device, dtype (float32 or bfloat16 for the buckets and
 all three weights; int32 counts), shapes (d and f multiples of 8),
 contiguity and 16-byte alignment, allocates the
-output and the (E, C, f) fp32 scratch with ``torch.empty`` and launches on
+output and the (E, C, f) fp32 scratch with ``torch.empty``, picks the
+kernel's launch configuration (:func:`launch_config`) and launches on
 PyTorch's current stream.  Every call adds one to :data:`LAUNCHES` (the
 kernel's two launches, gate/up then down, count as one); CPU tensors raise.
 The plain version is ``ref.grouped_ffn_ref``; ``ops.grouped_ffn`` dispatches
@@ -12,8 +13,9 @@ by device.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +23,10 @@ from .. import _build
 from ..tile_spmm.kernel import _check
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_ffn.cu"
+#: dynamic shared memory one block may use on an H100 (227 KB)
+MAX_SMEM = 232_448
+# the kernel's kBK, kSlice, kWarpCols, kMaxSlices
+_BK, _SLICE, _WARP_COLS, _MAX_SLICES = 32, 8, 128, 8
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"grouped_ffn": 0}
@@ -38,10 +44,78 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
-        lib.zipper_grouped_ffn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+        lib.zipper_grouped_ffn.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         lib.zipper_grouped_ffn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+@dataclasses.dataclass(frozen=True)
+class FfnConfig:
+    """Launch configuration of the grouped-FFN kernel (both launches).
+
+    ``rows`` = 8 ``slices``: the row tile, one warp per 8-row slice and
+    contraction share; ``ksplit`` warps share each 32-deep contraction step;
+    ``cols``: the column tile of the gate/up launch and of the down launch;
+    ``slots``: stages of the cp.async ring; ``smem``: dynamic shared-memory
+    bytes a block takes."""
+
+    rows: int
+    slices: int
+    ksplit: int
+    cols: Tuple[int, int]
+    slots: int
+    smem: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.slices * self.ksplit
+
+
+def launch_config(E: int, C: int, d: int, f: int, dtype: torch.dtype, *,
+                  ksplit: Optional[int] = None,
+                  slots: Optional[int] = None) -> FfnConfig:
+    """The kernel's configuration for (E, C, d) buckets and f hidden units.
+
+    The row tile covers the bucket in 8-row slices (C <= 64 in one tile, so
+    a live expert's weights are read once a launch).  Warps split each
+    contraction step 4 ways for 1-3 slices, 2 for 4-6, 1 for 7-8, so a
+    block has 4 to 12 warps.  The ring has 4 slots, 3 where the block is
+    small (C <= 16, decode: weight-read bound, so two blocks a SM count
+    more than a deeper ring).  A slot holds the x tile (rows padded by 16
+    bytes) and the weight tiles: 2 x 32 x 128 of the gate/up launch or 32 x
+    256 of the down launch, whichever is larger; the ks > 0 warps' partial
+    sums reuse the ring.  ``E``, ``d`` and ``f`` do not change it;
+    ``ksplit`` and ``slots`` override the choice (for timing others)."""
+    del E, d, f
+    slices = max(1, min(-(-C // _SLICE), _MAX_SLICES))
+    if ksplit is None:
+        ksplit = 4 if slices <= 3 else 2 if slices <= 6 else 1
+    if slots is None:
+        slots = 3 if slices <= 2 else 4
+    el = torch.finfo(dtype).bits // 8
+    rows = _SLICE * slices
+    gate = rows * (_BK + 16 // el) * el + 2 * _BK * _WARP_COLS * el
+    down = rows * (_BK + 4) * 4 + _BK * 2 * _WARP_COLS * el
+    reduce = (ksplit - 1) * slices * 32 * 64 * 4
+    return FfnConfig(rows=rows, slices=slices, ksplit=ksplit,
+                     cols=(_WARP_COLS, 2 * _WARP_COLS), slots=slots,
+                     smem=max(slots * max(gate, down), reduce))
+
+
+def row_slices(C: int, cfg: FfnConfig) -> List[Tuple[int, int]]:
+    """(first row, rows) of every 8-row slice a warp owns, over the row
+    tiles of a C-row bucket, rows past C cut off."""
+    return [(r, min(_SLICE, C - r))
+            for t0 in range(0, C, cfg.rows)
+            for r in range(t0, min(t0 + cfg.rows, C), _SLICE)]
+
+
+def issued_rows(counts: Sequence[int], C: int, cfg: FfnConfig) -> int:
+    """Row slots the kernel's FMAs run over: 8 for every slice with a live
+    row (a slice past ``counts[e]`` skips its FMAs)."""
+    return sum(_SLICE for n in counts for r0, _ in row_slices(C, cfg)
+               if r0 < min(int(n), C))
 
 
 def grouped_ffn_cuda(buckets, w_gate, w_up, w_down, counts) -> torch.Tensor:
@@ -71,12 +145,14 @@ def grouped_ffn_cuda(buckets, w_gate, w_up, w_down, counts) -> torch.Tensor:
     if out.numel() == 0:
         return out
     act = torch.empty((E, C, f), dtype=torch.float32, device=dev)
+    cfg = launch_config(E, C, d, f, dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().zipper_grouped_ffn(
             buckets.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
             w_down.data_ptr(), counts.data_ptr(), act.data_ptr(), out.data_ptr(),
-            E, C, d, f, int(dt == torch.bfloat16), stream)
+            E, C, d, f, int(dt == torch.bfloat16), cfg.slices, cfg.ksplit,
+            cfg.slots, cfg.smem, stream)
     if err != 0:
         raise RuntimeError(f"zipper_grouped_ffn failed to launch: CUDA error {err}")
     LAUNCHES["grouped_ffn"] += 1

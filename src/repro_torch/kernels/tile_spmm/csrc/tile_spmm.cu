@@ -10,11 +10,12 @@
 // wrapper turns part_id into partition runs part_ptr (P+1): the tiles of
 // partition p are [part_ptr[p], part_ptr[p+1]).
 //
-// Shared design of kernels 1, 3 and 4 (kernel 2 walks a CSR plan instead,
-// see its note).  One block of 8 warps owns one (partition, 4 output rows,
-// 128 output columns) piece of the (P, D, F) output and takes its rows one
-// at a time.  For a row, the 8 warps split the work — the dense kernels by
-// column stripes of the row, the CSR softmax by the partition's tiles — and
+// Shared design of kernels 3 and 4 (kernel 1 gives each row a warp of its
+// own, kernel 2 walks a CSR plan: see their notes).  One block of 8 warps
+// owns one (partition, 4 output rows, 128 output columns) piece of the
+// (P, D, F) output and takes its rows one at a time.  For a row, the 8
+// warps split the work — the COO softmax by column stripes of the score
+// row, the CSR softmax by the partition's tiles — and
 // each warp keeps its own running state in registers: the accumulator over
 // its lane's 4 columns and, for the softmax, the running max m and sum l.
 // The block then merges the 8 states in shared memory and writes the row.
@@ -182,30 +183,175 @@ __device__ __forceinline__ void merge_and_store(const RowState& st,
 //    (src/repro/kernels/tile_spmm/kernel.py): out[p] = sum_{t in p} A_t X_t
 //    over the densified (T, D, S) adjacency blocks.
 //    Bound: bytes.  The dense A block must be read once (T D S x 4 bytes)
-//    while the function needs only 2 F flops per real edge.  The 8 warps
-//    sweep row d of every tile of the partition in interleaved 32-column
-//    stripes (coalesced), find its nonzeros by ballot and add a * X[t, s, :]
-//    for each; the dense product's zero entries cost no FMA.
+//    while the function needs only 2 F flops per real edge.  One warp owns
+//    one output row (p, d) and all its columns: no block barrier, no merge,
+//    and no shared memory but a list of its own.  It reads row d of every
+//    tile of p as one stream of AV-float pieces (a float4 where S and the
+//    block allow it): lane l
+//    takes pieces l, l + 32, ... across the tiles, kAdjLoads of them issued
+//    before the first ballot, so 4 KB a warp are in flight.  Ballots then
+//    list the nonzeros (x row, a) in the warp's shared-memory list, in
+//    (batch, piece, column in the piece, lane) order; the list is gathered
+//    when full and at the row's end, a * X[t, s, :] for each entry with
+//    kGather x rows in flight, one float4 a lane (F = 128 is 32 lanes x 4
+//    columns).  So the sweep never waits on a gather, and a row's ~6 edges
+//    cost one gather round trip, not six.  The sum runs in list order and
+//    the row is written once: deterministic.  F past 128 is taken in
+//    128-column slices, each a sweep of its own; F not a multiple of 4, or
+//    x or out not 16-byte aligned, reads x a column a lane (columns c, c +
+//    32, c + 64, c + 96 of the slice).  A partition with no tile writes
+//    zeros.  What holds it now: the sweep alone (no list, no gather) reads
+//    the block at ~2.3 TB/s, limited by the 4 KB a warp has in flight; more
+//    pieces a lane cost registers, and so warps, faster than they add bytes
+//    (tools/kernel_variants.py).
 // ---------------------------------------------------------------------------
+constexpr int kAdjLoads = 8;   // adjacency pieces a lane loads before a ballot
+constexpr int kList = 256;     // nonzeros a warp lists before it gathers them
+constexpr int kGather = 8;     // x rows a warp has in flight while gathering
+
+// AV consecutive floats from p (16-byte aligned when AV == 4)
+template <int AV>
+__device__ __forceinline__ void load_piece(float (&v)[AV], const float* p) {
+  if constexpr (AV == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// this lane's 4 columns of a 128-column slice starting at f0: XV == 4
+// holds f0 + 4 lane .. + 3, XV == 1 holds f0 + lane + 32 c
+template <int XV>
+__device__ __forceinline__ int lane_col(int f0, int lane, int c) {
+  return XV == 4 ? f0 + 4 * lane + c : f0 + lane + 32 * c;
+}
+
+template <int XV>
+__device__ __forceinline__ void load_cols(float (&v)[kLaneCols],
+                                          const float* row, int f0, int F) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (XV == 4) {
+    const int c = f0 + 4 * lane;
+    if (c < F) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(row + c));
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kLaneCols; ++c) {
+      const int cc = lane_col<XV>(f0, lane, c);
+      v[c] = cc < F ? __ldg(row + cc) : 0.f;
+    }
+  }
+}
+
+// acc += a * x[row, cols] for the n (x row, a) pairs of a warp's list, in
+// list order, kGather x rows in flight
+template <int XV>
+__device__ __forceinline__ void gather_list(float (&acc)[kLaneCols],
+                                            const int2* list, int n,
+                                            const float* __restrict__ x,
+                                            int f0, int F) {
+  for (int g0 = 0; g0 < n; g0 += kGather) {
+    float a[kGather], xv[kGather][kLaneCols];
+#pragma unroll
+    for (int g = 0; g < kGather; ++g) {
+      if (g0 + g < n) {                                    // warp-uniform
+        const int2 en = list[g0 + g];
+        a[g] = __int_as_float(en.y);
+        load_cols<XV>(xv[g], x + (size_t)en.x * F, f0, F);
+      } else {
+        a[g] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kLaneCols; ++c) xv[g][c] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGather; ++g)
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) acc[c] = fmaf(a[g], xv[g][c], acc[c]);
+  }
+}
+
+// grid ceil(P D / 8) blocks of 8 warps; warp w of block b owns row
+// b 8 + w = p D + d.  AV divides S; adj 16-byte aligned when AV == 4; x
+// and out 16-byte aligned and F a multiple of 4 when XV == 4; T S < 2^31.
+template <int AV, int XV>
 __global__ void __launch_bounds__(kThreads)
 coo_spmm_kernel(const float* __restrict__ adj, const float* __restrict__ x,
                 const int* __restrict__ part_ptr, float* __restrict__ out,
-                int D, int S, int F) {
-  __shared__ float s_acc[kWarps][kCols];
-  __shared__ float s_m[kWarps], s_l[kWarps];
+                int P, int D, int S, int F) {
+  __shared__ int2 s_list[kWarps][kList];                  // (x row, a) pairs
   const int lane = threadIdx.x % 32;
-  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
-  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
-  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
-  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
-    RowState st;
-    reset(st);
-    sweep_row(adj, t0, t1, d, D, S, 0.f, [&](int t, int s0, float a) {
-      const float* xs = x + ((size_t)t * S + s0) * F;
-      gather_rows(st, __ballot_sync(kAll, a != 0.f), a,
-                  [&](int j) { return xs + (size_t)j * F; }, col, F);
-    });
-    merge_and_store<false>(st, s_acc, s_m, s_l, out, p, d, D, F);
+  const unsigned below = (1u << lane) - 1u;               // lanes under this one
+  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= (long long)P * D) return;                    // warp-uniform
+  int2* list = s_list[threadIdx.x / 32];
+  const int p = (int)(row / D), d = (int)(row - (long long)p * D);
+  const int t0 = __ldg(part_ptr + p), t1 = __ldg(part_ptr + p + 1);
+  const int SQ = S / AV;                                   // pieces a tile row
+  float* out_row = out + (size_t)row * F;
+  for (int f0 = 0; f0 < F; f0 += kCols) {
+    float acc[kLaneCols];
+#pragma unroll
+    for (int c = 0; c < kLaneCols; ++c) acc[c] = 0.f;
+    int n = 0;                                             // listed nonzeros
+    // this lane's next piece: quad q of row d of tile t
+    int t = SQ > 0 ? t0 : t1, q = lane;
+    while (t < t1 && q >= SQ) { q -= SQ; ++t; }
+    while (__any_sync(kAll, t < t1)) {
+      float v[kAdjLoads][AV];
+      int xrow[kAdjLoads];                                 // x row of its first column
+#pragma unroll
+      for (int u = 0; u < kAdjLoads; ++u) {
+        xrow[u] = t * S + q * AV;
+        if (t < t1) {
+          load_piece<AV>(v[u], adj + ((size_t)t * D + d) * S + (size_t)q * AV);
+        } else {
+#pragma unroll
+          for (int e = 0; e < AV; ++e) v[u][e] = 0.f;
+        }
+        q += 32;
+        while (t < t1 && q >= SQ) { q -= SQ; ++t; }
+      }
+#pragma unroll
+      for (int u = 0; u < kAdjLoads; ++u) {
+        bool nz = false;
+#pragma unroll
+        for (int e = 0; e < AV; ++e) nz |= v[u][e] != 0.f;
+        if (!__any_sync(kAll, nz)) continue;
+        if (n > kList - 32 * AV) {                         // room for this piece
+          __syncwarp();
+          gather_list<XV>(acc, list, n, x, f0, F);
+          n = 0;
+          __syncwarp();
+        }
+#pragma unroll
+        for (int e = 0; e < AV; ++e) {
+          const bool h = v[u][e] != 0.f;
+          const unsigned m = __ballot_sync(kAll, h);
+          if (h) list[n + __popc(m & below)] = make_int2(xrow[u] + e, __float_as_int(v[u][e]));
+          n += __popc(m);
+        }
+      }
+    }
+    __syncwarp();
+    gather_list<XV>(acc, list, n, x, f0, F);
+    __syncwarp();                                          // the list is free again
+    if constexpr (XV == 4) {
+      const int c = f0 + 4 * lane;
+      if (c < F)
+        *reinterpret_cast<float4*>(out_row + c) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        const int cc = lane_col<XV>(f0, lane, c);
+        if (cc < F) out_row[cc] = acc[c];
+      }
+    }
   }
 }
 
@@ -478,9 +624,24 @@ extern "C" {
 int zipper_tile_spmm_coo(const void* adj, const void* x, const void* part_ptr,
                          void* out, int P, int D, int S, int F, void* stream) {
   if (P > 0 && D > 0 && F > 0) {
-    coo_spmm_kernel<<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)adj, (const float*)x, (const int*)part_ptr,
-        (float*)out, D, S, F);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const bool adj4 = S % 4 == 0 && (size_t)adj % 16 == 0;
+    const bool x4 = F % 4 == 0 && (size_t)x % 16 == 0 && (size_t)out % 16 == 0;
+    const unsigned blocks = (unsigned)(((long long)P * D + kWarps - 1) / kWarps);
+#define ZIPPER_COO(AV, XV)                                                     \
+    coo_spmm_kernel<AV, XV><<<blocks, kThreads, 0, st>>>(                      \
+        (const float*)adj, (const float*)x, (const int*)part_ptr, (float*)out, \
+        P, D, S, F);
+    if (adj4 && x4) {
+      ZIPPER_COO(4, 4)
+    } else if (adj4) {
+      ZIPPER_COO(4, 1)
+    } else if (x4) {
+      ZIPPER_COO(1, 4)
+    } else {
+      ZIPPER_COO(1, 1)
+    }
+#undef ZIPPER_COO
   }
   return (int)cudaGetLastError();
 }

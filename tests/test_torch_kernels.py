@@ -6,6 +6,9 @@ against these plain versions there); on the CPU the dispatchers in
 `repro_torch.kernels.tile_spmm.ops` take the plain versions, and the CUDA
 wrappers refuse CPU tensors.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +29,14 @@ from repro_torch.kernels.tile_spmm import ref as tref
 from repro_torch.kernels.tile_spmm.plan import LAST, csr_plan
 
 TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 SHAPES = [(120, 500, 4, 4, 16), (80, 200, 2, 5, 8), (50, 600, 6, 2, 32)]
 
 
@@ -406,6 +417,29 @@ def test_csr_plan_walk_matches_reference_and_pallas(case, chunk_size, rng):
     np.testing.assert_allclose(
         got[live], np.asarray(jkernel.tile_spmm_csr_pallas(
             *jargs, jnp.asarray(flags), n_parts=cs.n_dst_parts))[live], **TOL)
+
+
+def test_coo_off_path_reaches_every_tail():
+    """chip_smoke.py's off-path COO SpMM cases reach F not a multiple of 4
+    (x read a column a lane), F over 128 (two column slices), F under 128
+    (idle lanes), S not a multiple of 4 (the adjacency read a float a lane)
+    and a partition with no tile."""
+    cases = _chip_smoke().COO_OFF_PATH
+    assert any(c["F"] % 4 for c in cases)
+    assert any(c["F"] > 128 for c in cases)
+    assert any(c["F"] < 128 and c["F"] % 4 == 0 for c in cases)
+    assert any(c["S"] % 4 for c in cases)
+    assert any(0 in c["parts"] for c in cases)
+    for c in cases:                                  # plain version: zeros there
+        rng = np.random.default_rng(0)
+        T, P = sum(c["parts"]), len(c["parts"])
+        pid = _t(np.repeat(np.arange(P, dtype=np.int32), c["parts"]))
+        adj = _t(rng.standard_normal((T, c["D"], c["S"])).astype(np.float32))
+        x = _t(rng.standard_normal((T, c["S"], c["F"])).astype(np.float32))
+        out = tops.spmm(adj, x, pid, _t(tkernel.tile_flags(pid.numpy())), n_parts=P)
+        assert out.shape == (P, c["D"], c["F"])
+        for p, n in enumerate(c["parts"]):
+            assert (torch.count_nonzero(out[p]) == 0) == (n == 0)
 
 
 def test_partition_ptr_matches_the_device_runs():

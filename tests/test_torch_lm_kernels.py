@@ -229,6 +229,70 @@ def test_flash_launch_config_fits_every_head_dim(dtype):
                 assert smem <= tflash_kernel.MAX_SMEM
 
 
+# the grouped-FFN kernel's launch configurations: DeepSeek-V2's MoE layer at
+# a 1,024-token prefill chunk and a 4-token decode step (E, C, d, f), the
+# MOE_CASES buckets and chip_smoke.py's off-path cases
+PATH_FFN = {"prefill_chunk": ((160, 48, 5120, 1536), (48, 2, 4, 158_720)),
+            "decode": ((160, 8, 5120, 1536), (8, 4, 3, 101_760))}
+FFN_SHAPES = ([shape for shape, _ in PATH_FFN.values()]
+              + [(E, cap, d, f) for _, d, E, f, _, cap in MOE_CASES]
+              + [(len(c["counts"]), c["C"], c["d"], c["f"]) for c in chip_smoke.FFN_OFF_PATH])
+
+
+@pytest.mark.parametrize("case", list(PATH_FFN))
+def test_grouped_ffn_launch_config_at_the_path_shapes(case):
+    """One row tile covers the bucket (each live expert's weights are read
+    once a launch), in 4 to 12 warps, within an H100 block's 227 KB."""
+    (E, C, d, f), (rows, ksplit, slots, smem) = PATH_FFN[case]
+    cfg = tmoe_kernel.launch_config(E, C, d, f, torch.float32)
+    assert (cfg.rows, cfg.ksplit, cfg.slots, cfg.smem) == (rows, ksplit, slots, smem)
+    assert cfg.rows >= C and cfg.cols == (128, 256)
+    assert tmoe_kernel.launch_config(E, C, d, f, torch.bfloat16).smem <= smem
+    assert tmoe_kernel.MAX_SMEM == 232_448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f", FFN_SHAPES)
+def test_grouped_ffn_launch_config_fits_and_skips_dead_slices(E, C, d, f, dtype):
+    """Every configuration fits the shared memory and the kernel's limits
+    (1-8 slices, 1, 2 or 4 contraction shares, at most 12 warps); for every
+    live count, each live row lies in a slice the grid covers, and the row
+    slots issued are the live rows rounded up to the 8-row slice."""
+    cfg = tmoe_kernel.launch_config(E, C, d, f, dtype)
+    assert cfg.smem <= tmoe_kernel.MAX_SMEM
+    assert 1 <= cfg.slices <= 8 and cfg.rows == 8 * cfg.slices
+    assert cfg.ksplit in (1, 2, 4) and 4 <= cfg.threads // 32 <= 12
+    assert 2 <= cfg.slots <= 4
+    slices = tmoe_kernel.row_slices(C, cfg)
+    covered = [r for r0, n in slices for r in range(r0, r0 + n)]
+    assert covered == list(range(C))               # each row once, in order
+    for n in range(C + 1):
+        issued = tmoe_kernel.issued_rows([n], C, cfg)
+        assert n <= issued <= -(-n // 8) * 8
+    counts = list(range(C + 1))
+    assert tmoe_kernel.issued_rows(counts, C, cfg) == sum(-(-n // 8) * 8 for n in counts)
+
+
+def test_grouped_ffn_off_path_reaches_every_tail():
+    """chip_smoke.py's off-path grouped-FFN cases reach the K tails (d and f
+    not multiples of the 32-deep step), the column tails (f not a multiple
+    of 128, d not of 256), a row slice cut by C, two row tiles, and counts
+    of 0, C, a partial slice and a live expert with a dead slice."""
+    cases = chip_smoke.FFN_OFF_PATH
+    assert all(c["d"] % 8 == 0 and c["f"] % 8 == 0 for c in cases)
+    assert any(c["d"] % 32 for c in cases) and any(c["f"] % 32 for c in cases)
+    assert any(c["f"] % 128 for c in cases) and any(c["d"] % 256 for c in cases)
+    configs = [tmoe_kernel.launch_config(len(c["counts"]), c["C"], c["d"], c["f"],
+                                         torch.float32) for c in cases]
+    assert any(c["C"] % cfg.rows for c, cfg in zip(cases, configs))
+    assert any(c["C"] % 8 for c in cases)
+    assert any(c["C"] > cfg.rows for c, cfg in zip(cases, configs))
+    counts = [(n, c["C"]) for c in cases for n in c["counts"]]
+    assert any(n == 0 for n, _ in counts) and any(n == C for n, C in counts)
+    assert any(0 < n < C and n % 8 for n, C in counts)
+    assert any(0 < n <= C - 8 for n, C in counts)
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's limits for the CUDA kernels: room above fp32 rounding, none
 # for a wrong result
