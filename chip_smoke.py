@@ -12,14 +12,18 @@ Phases, each printing one JSON line or more:
    PyTorch version on the card, at the shapes of phases 4 and 5, with its
    median time over CUDA-event-timed runs, the plain version's time, the
    time of one PyTorch library call where one exists, and its bound; the
-   CSR SpMM's plan is built first (its build time is its own field); the
-   COO SpMM, given its partition runs, and the CSR SpMM, given its plan,
-   run once each with host syncs made errors; the COO SpMM also runs at
-   the off-path shapes of ``COO_OFF_PATH``;
+   edge plans are built first (their build times and host syncs are
+   fields of their rows); the COO SpMM, given its partition runs, and the
+   plan-walking kernels, given their plans, run once each with host syncs
+   made errors; both segment softmaxes run on per-edge operands (padded
+   slots NaN) against the plan walk; the COO SpMM also runs at the
+   off-path shapes of ``COO_OFF_PATH``, the softmaxes at those of
+   ``SOFTMAX_OFF_PATH``;
 4. serving (COO tiles): ``InferenceServer`` on 2-layer gcn and gat at width
    128 over a batch of 16 power-law graphs (2,000 vertices, 16,000 edges
    each), submitted three times — one build, then cache hits — against the
-   whole-graph oracle ``run_reference`` on the card;
+   whole-graph oracle ``run_reference`` on the card, with the COO edge
+   plan's build time (each gat submit builds one at bind);
 5. whole graph (CSR tiles): ``run_pipelined`` on the coAuthorsDBLP stand-in
    (299,068 vertices, 977,676 edges) for 2-layer gcn and gat at width 128,
    against ``run_reference``.
@@ -117,6 +121,16 @@ COO_OFF_PATH = [
     dict(case="f20_s37", parts=(3, 0, 2, 4), D=70, S=37, F=20),
     dict(case="f130", parts=(2, 5, 0), D=64, S=584, F=130),
 ]
+# Segment softmax off the path (phase 3), both layouts, on one graph tiled
+# 4 x 3: destinations only in the lower half of the vertices (two
+# partitions without a tile), a hub row of 3 x 128 + 50 parallel in-edges
+# (split into 4 chunks), and in COO every edge into vertex ``dead_row`` and
+# ~5 % of the others scored -2e29, below the liveness cut (a row with no
+# live edge is 0); widths F 20 (lanes past the row idle) and 130 (not a
+# multiple of 4: a column a lane, in 32-column slices).
+SOFTMAX_GRAPH = dict(V=400, E=3000, hub=9, hub_edges=3 * 128 + 50, dead_row=20)
+SOFTMAX_OFF_PATH = [dict(case="f20", F=20), dict(case="f130", F=130)]
+DEAD_SCORE = -2e29
 # grouped FFN: d and f multiples of 8 but not of the 32-deep contraction
 # step nor of the 128 / 256-column tiles; C past the last full 8-row slice
 # (44) and over two row tiles (72); counts mixing 0, C and partial ones
@@ -171,6 +185,55 @@ def without_host_sync(fn):
     return out
 
 
+def count_host_syncs(fn):
+    """Run ``fn`` once with PyTorch's host syncs turned into warnings;
+    return its result and the number of syncs it made."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def build_timed(fn, times: int = 2):
+    """Call ``fn`` (an edge-plan build) ``times`` times, host-timed to a
+    synchronize; return the last result, the milliseconds of each call and
+    the host syncs of one more call."""
+    import torch
+    ms = []
+    for _ in range(times):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    _, syncs = count_host_syncs(fn)
+    return out, ms, syncs
+
+
+def softmax_off_path_tiles(layout: str):
+    """The graph of ``SOFTMAX_GRAPH`` (numpy, seed 0) and its 4 x 3 tiles."""
+    import numpy as np
+    from repro_torch.core.tiling import grid_tile
+    from repro_torch.gnn.graphs import Graph
+    c = SOFTMAX_GRAPH
+    rng = np.random.default_rng(0)
+    src = np.concatenate([rng.integers(0, c["V"], c["E"]),
+                          rng.integers(0, c["V"], c["hub_edges"])])
+    dst = np.concatenate([rng.integers(0, c["V"] // 2, c["E"]),
+                          np.full(c["hub_edges"], c["hub"])])
+    g = Graph(src=src.astype(np.int32), dst=dst.astype(np.int32), n_vertices=c["V"])
+    return g, grid_tile(g, 4, 3, sparse=True, layout=layout)
+
+
 def scaled_err(got, ref) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
@@ -184,12 +247,30 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     import torch
     from repro_torch.kernels.tile_spmm import kernel as K
     from repro_torch.kernels.tile_spmm import ops, ref
-    from repro_torch.kernels.tile_spmm.plan import csr_plan
+    from repro_torch.kernels.tile_spmm.plan import coo_plan, csr_plan
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
+
+    def padded_nan(t, ts):
+        """``t`` (T, E, ...) with NaN in every padded edge slot of ``ts``."""
+        pad = (torch.arange(t.shape[1], device=dev)[None, :]
+               >= torch.as_tensor(ts.n_edge, device=dev)[:, None])
+        return t.masked_fill_(pad, float("nan"))
+
+    def plan_of(ts):
+        """The edge plan of tiles ``ts`` on the card (as the runner's bind
+        builds it), with its build times and host syncs."""
+        P, D = ts.n_dst_parts, int(ts.part_size.max())
+        pid = torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev)
+        if ts.layout == "csr":
+            rp = torch.as_tensor(ts.row_ptr, dtype=torch.int32, device=dev)
+            return build_timed(lambda: csr_plan(rp, pid, P, ts.e_max))
+        ed = torch.as_tensor(ts.edge_dst, dtype=torch.int32, device=dev)
+        ne = torch.as_tensor(ts.n_edge, dtype=torch.int32, device=dev)
+        return build_timed(lambda: coo_plan(ed, ne, pid, P, D))
 
     rows = []
 
@@ -269,17 +350,99 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
               primary=False, case=c["case"])
         del a, xc
 
-    scores = ops.densify_edge_scores(randn(T, E), edge_dst, n_edge_t, dmax=D)
-    vals = randn(T, E, WIDTH)
-    check("segment_softmax",
-          lambda: K.segment_softmax_cuda(scores, vals, part_id, flags, n_parts=P,
-                                         part_ptr=part_ptr),
-          lambda: ref.segment_softmax_ref(scores, vals, part_id, P),
-          lambda: ref.segment_softmax_ref(scores, vals.abs(), part_id, P),
-          scores.numel() * 4 + n_edge * WIDTH * 4 + T * 4 + out_bytes,
-          n_edge * (2 * WIDTH + 1),
-          note=dict(T=T, D=D, E=E, F=WIDTH, P=P, edges=n_edge))
-    del adj, xsrc, scores, vals
+    del adj, xsrc
+
+    def softmax(name, ts, s_e, xsrc, built, primary=True, case=None):
+        """One segment softmax on tiles ``ts``: per-edge scores ``s_e``
+        (T, E), the tiles' column indices and the source replica ``xsrc``
+        (T, S, F), walking the plan ``built`` (plan, build ms, host syncs)
+        against the plan walk's plain version."""
+        plan, plan_ms, plan_syncs = built
+        coo = ts.layout == "coo"
+        T, E = s_e.shape
+        S, F = xsrc.shape[-2:]
+        P, D = ts.n_dst_parts, int(ts.part_size.max())
+        pid = torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev)
+        fl = torch.as_tensor(K.tile_flags(ts.part_id), device=dev)
+        col = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
+        if coo:
+            ed = torch.as_tensor(ts.edge_dst, dtype=torch.int32, device=dev)
+            ne = torch.as_tensor(ts.n_edge, dtype=torch.int32, device=dev)
+
+            def kernel():
+                return K.segment_softmax_cuda(ed, ne, col, s_e, xsrc, pid, fl,
+                                              n_parts=P, dmax=D, plan=plan)
+        else:
+            rp = torch.as_tensor(ts.row_ptr, dtype=torch.int32, device=dev)
+
+            def kernel():
+                return K.segment_softmax_csr_cuda(rp, col, s_e, xsrc, pid, fl,
+                                                  n_parts=P, plan=plan)
+        n_edge = plan.slot.numel()
+        chunks = plan.split_ptr.diff()
+        note = dict(T=T, D=D, S=S, E=E, F=F, P=P, layout=ts.layout,
+                    edges=n_edge, groups=plan.group_ptr.numel() - 1,
+                    zero_rows=plan.zero_row.numel(),
+                    split_rows=plan.split_row.numel(),
+                    most_chunks=int(chunks.max()) if chunks.numel() else 1,
+                    partials=plan.n_partial, chunk_size=plan.chunk_size)
+        library = None
+        extra = {}
+        if primary:
+            without_host_sync(kernel)
+            # the library yardstick, two calls: torch.sparse.softmax over
+            # the (P*D, live edges) score matrix, then torch.sparse.mm with
+            # the edges' source rows (the matrix and the rows are built here,
+            # outside the timing)
+            slot = plan.slot.long()
+            s = s_e.reshape(-1)[slot]
+            keep = torch.nonzero(s > ref._LIVE if coo else torch.isfinite(s)).flatten()
+            rows_of = torch.repeat_interleave(
+                torch.arange(P * D, device=dev), plan.row_start.diff().long())
+            sp = torch.sparse_coo_tensor(
+                torch.stack([rows_of[keep], torch.arange(keep.numel(), device=dev)]),
+                s[keep], (P * D, keep.numel())).coalesce()
+            vals = xsrc.reshape(T * S, F)[(slot[keep] // E) * S
+                                          + col.reshape(-1).long()[slot[keep]]]
+
+            def library():
+                return torch.sparse.mm(torch.sparse.softmax(sp, 1), vals)
+
+            extra = dict(library_max_abs_diff=float(
+                (library().view(P, D, F) - kernel()).abs().max()))
+            note["library"] = ("two calls: torch.sparse.softmax over the "
+                               "(P*D, edges) score matrix, then torch.sparse.mm "
+                               "with the edges' gathered source rows")
+        check(name, kernel,
+              lambda: ref.segment_softmax_plan_ref(plan, col, s_e, xsrc, P, coo=coo),
+              lambda: ref.segment_softmax_plan_ref(plan, col, s_e, xsrc.abs(), P,
+                                                   coo=coo),
+              plan.nbytes + n_edge * 8 + int(ts.n_src.sum()) * F * 4
+              + P * D * F * 4 + plan.n_partial * (F + 2) * 4,
+              n_edge * (2 * F + 3), library=library, note=note,
+              primary=primary, case=case, plan_first_ms=plan_ms[0],
+              plan_ms=plan_ms[-1], plan_host_syncs=plan_syncs,
+              plan_bytes=plan.nbytes, **extra)
+
+    # the softmaxes off the path (SOFTMAX_OFF_PATH), both layouts
+    for layout in ("coo", "csr"):
+        g, tc = softmax_off_path_tiles(layout)
+        built = plan_of(tc)
+        dst_of = torch.as_tensor(g.dst, device=dev)[
+            torch.as_tensor(tc.edge_gid, device=dev).long()]
+        for c in SOFTMAX_OFF_PATH:
+            s_c = padded_nan(randn(tc.n_tiles, tc.e_max), tc)
+            if layout == "coo":
+                dead = ((dst_of == SOFTMAX_GRAPH["dead_row"])
+                        | (torch.rand(s_c.shape, generator=gen, device=dev) < 0.05))
+                s_c = torch.where(dead & ~torch.isnan(s_c), DEAD_SCORE, s_c)
+            softmax("segment_softmax" if layout == "coo" else "segment_softmax_csr",
+                    tc, s_c, randn(tc.n_tiles, tc.s_max, c["F"]), built,
+                    primary=False, case=f"{c['case']}_{layout}")
+
+    # the COO softmax at the serving batch's shapes
+    softmax("segment_softmax", ts, padded_nan(randn(T, E), ts),
+            randn(T, S, WIDTH), plan_of(ts))
 
     # -- CSR operands at the whole-graph phase's shapes (phase 5); padded
     # edge slots hold NaN, which the kernels must never read
@@ -293,12 +456,9 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     flags = torch.as_tensor(K.tile_flags(ts.part_id), device=dev)
     row_ptr = torch.as_tensor(ts.row_ptr, dtype=torch.int32, device=dev)
     col = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
-    pad = (torch.arange(E, device=dev)[None, :]
-           >= torch.as_tensor(ts.n_edge, device=dev)[:, None])
-    w = randn(T, E).masked_fill_(pad, float("nan"))
+    w = padded_nan(randn(T, E), ts)
     xsrc = randn(T, S, WIDTH)
     out_bytes = P * D * WIDTH * 4
-    rp_bytes = row_ptr.numel() * 4
     # the library yardstick: one sparse (P*D, T*S) CSR product, built here
     # from the same edges (only the product is timed)
     t_e, slot, dest = ref._csr_edges(row_ptr, part_id, E)
@@ -306,15 +466,10 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
         torch.stack([dest, t_e * S + col.long()[t_e, slot]]), w[t_e, slot],
         (P * D, T * S)).coalesce().to_sparse_csr()
     x_flat = xsrc.view(T * S, WIDTH)
-    # the CSR plan, built once per tile set (as PipelinedRunner.bind does):
+    # the edge plan, built once per tile set (as PipelinedRunner.bind does):
     # the first build in the process, and a second one
-    plan_ms = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plan = csr_plan(row_ptr, part_id, P, E)
-        torch.cuda.synchronize()
-        plan_ms.append(1e3 * (time.perf_counter() - t0))
+    built = plan_of(ts)
+    plan, plan_ms, plan_syncs = built
 
     def csr_spmm():
         return K.tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags,
@@ -335,21 +490,13 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
                     partials=plan.n_partial, chunk_size=plan.chunk_size,
                     library="torch.sparse.mm of the (P*D, T*S) CSR matrix "
                             "of the same edges"),
-          plan_first_ms=plan_ms[0], plan_ms=plan_ms[1], plan_bytes=plan.nbytes)
-    del sp, x_flat, xsrc, w, plan
+          plan_first_ms=plan_ms[0], plan_ms=plan_ms[1], plan_host_syncs=plan_syncs,
+          plan_bytes=plan.nbytes)
+    del sp, x_flat, w
 
-    s_e = randn(T, E).masked_fill_(pad, float("nan"))
-    vals = randn(T, E, WIDTH)
-    check("segment_softmax_csr",
-          lambda: K.segment_softmax_csr_cuda(row_ptr, s_e, vals, part_id, flags,
-                                             n_parts=P, part_ptr=part_ptr),
-          lambda: ref.segment_softmax_csr_ref(row_ptr, s_e, vals, part_id, P),
-          lambda: ref.segment_softmax_csr_ref(row_ptr, s_e, vals.abs(),
-                                              part_id, P),
-          rp_bytes + n_edge * (4 + WIDTH * 4) + T * 4 + out_bytes,
-          n_edge * (2 * WIDTH + 2),
-          note=dict(T=T, D=D, E=E, F=WIDTH, P=P, edges=n_edge))
-    del vals, s_e
+    # the CSR softmax on the same tiles, plan and source replica
+    softmax("segment_softmax_csr", ts, padded_nan(randn(T, E), ts), xsrc, built)
+    del xsrc, plan, built
     torch.cuda.empty_cache()
     return rows
 
@@ -366,14 +513,23 @@ def serving_phase(graphs, dev):
     from repro_torch.gnn import graphs as G
     from repro_torch.gnn import models as M
     from repro_torch.kernels.tile_spmm.kernel import LAUNCHES
+    from repro_torch.kernels.tile_spmm.plan import coo_plan
     from repro_torch.serve import InferenceServer, ShapeRegistry
 
     # the host half of every submit: merge the batch and tile it onto the
     # class's canonical shapes (the server repeats this per request)
     t0 = time.perf_counter()
     batch = G.batch_graphs(graphs)
-    ShapeRegistry().canonical("shapes", batch.graph)
+    _, tiles, _, _ = ShapeRegistry().canonical("shapes", batch.graph)
     host_tiling_s = time.perf_counter() - t0
+    # the COO edge plan a gat submit builds at bind, from the tiles' arrays
+    # on the card: three builds, and the host syncs of one
+    pid = torch.as_tensor(tiles.part_id, dtype=torch.int32, device=dev)
+    ed = torch.as_tensor(tiles.edge_dst, dtype=torch.int32, device=dev)
+    ne = torch.as_tensor(tiles.n_edge, dtype=torch.int32, device=dev)
+    _, plan_ms, plan_syncs = build_timed(
+        lambda: coo_plan(ed, ne, pid, tiles.n_dst_parts, int(tiles.part_size.max())),
+        times=3)
     expect = {"gcn": "tile_spmm", "gat": "segment_softmax"}
     for name in ("gcn", "gat"):
         tr = M.trace_stacked(name, 2, WIDTH, WIDTH, WIDTH)
@@ -405,6 +561,8 @@ def serving_phase(graphs, dev):
         require(err <= MODEL_TOL[name],
                 f"serving {name}: err {err} over {MODEL_TOL[name]}")
         warm = lat[1:]
+        plan = (dict(softmax_plan_ms=plan_ms, softmax_plan_host_syncs=plan_syncs)
+                if name == "gat" else {})
         emit(dict(phase="serving", model=f"{name}_x2", layout="coo",
                   graphs=len(graphs), vertices=batch.graph.n_vertices,
                   edges=batch.graph.n_edges, cold_s=lat[0],
@@ -413,7 +571,7 @@ def serving_phase(graphs, dev):
                   host_tiling_s=host_tiling_s,
                   builds=server.compile_count, hits=server.cache_hits,
                   err_vs_oracle=err, tol=MODEL_TOL[name],
-                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **plan))
 
 
 def whole_graph_phase(graph, tiles, dev):

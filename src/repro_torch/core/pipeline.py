@@ -12,6 +12,8 @@ levels or roles of its own.  Per phase:
 * a gather block tagged ``pallas_segment_softmax`` launches the online
   segment-softmax kernel over the unbucketed tile batch (softmax state
   cannot be merged across buckets) — GAT's three softmax phases in ONE pass,
+  on per-edge scores and the tiles' source replica, walking the batch's
+  edge plan (built at bind, for either layout),
 * ``scan``-tagged gathers (sage, rgcn) fold every tile's edges into the
   shared accumulators with one batched ``index_add_`` /
   ``scatter_reduce_`` per bucket: there is no kernel on that path.
@@ -40,7 +42,7 @@ from ..gnn.graphs import Graph
 from ..kernels.tile_spmm import ops as tops
 from ..kernels.tile_spmm.kernel import (check_partition_major, partition_ptr,
                                         tile_flags)
-from ..kernels.tile_spmm.plan import csr_plan
+from ..kernels.tile_spmm.plan import coo_plan, csr_plan
 from .executor import _NEG_INF, apply_compute
 from .tiling import BucketedTileSet, TileSet
 
@@ -197,6 +199,25 @@ class PipelinedRunner:
                                         device=dev)
         return kc
 
+    def _softmax_const(self, ts: TileSet) -> Dict[str, Array]:
+        """Kernel metadata for the segment-softmax batch: the tile constants,
+        the int32 edge lists and the batch's edge plan (built on the device,
+        once per bind, with the plan's host syncs)."""
+        kc = self._tile_const(ts)
+        P, dev = self.tiles.n_dst_parts, self.device
+        kc["col"] = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
+        if ts.layout == "csr":
+            kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"], P,
+                                  ts.edge_src.shape[1])
+        else:
+            kc["edge_dst"] = torch.as_tensor(ts.edge_dst, dtype=torch.int32,
+                                             device=dev)
+            kc["n_edge"] = torch.as_tensor(ts.n_edge, dtype=torch.int32,
+                                           device=dev)
+            kc["plan"] = coo_plan(kc["edge_dst"], kc["n_edge"], kc["part_id"],
+                                  P, self.dmax)
+        return kc
+
     def _bucket_const(self, b: TileSet, ta: Dict[str, Array],
                       with_adj: bool) -> Dict[str, Array]:
         """Per-bucket kernel metadata for the SpMM blocks: over CSR tiles
@@ -239,7 +260,7 @@ class PipelinedRunner:
         if S.KERNEL_SEGMENT_SOFTMAX in self._kernels:
             st = tiles.source if isinstance(tiles, BucketedTileSet) else tiles
             ta0 = _tile_arrays(st, self.device)
-            kc0 = self._tile_const(st)
+            kc0 = self._softmax_const(st)
         return (tas, kcs, ta0, kc0, _perm_operand(reordering, self.device))
 
     # ------------------------------------------------------------------ run
@@ -388,25 +409,26 @@ class PipelinedRunner:
             # ---- kernel-dispatched gather blocks
             for g in phase.kernel_gathers():
                 if g.kernel == S.KERNEL_SEGMENT_SOFTMAX:
+                    # per-edge scores and the source replica h (T, S, F) feed
+                    # the kernel, which gathers h[t, edge_src] itself: no
+                    # dense score block, no (T, E, F) value block
                     xs0 = with_dst(ta0)
                     senv = eval_vertex(xs0["src_ids"], phase.src.nodes)
                     _, elookup = edge_env(g.edge_nodes, xs0, senv)
-                    h = src_value(senv, g.src_value_id, xs0["src_ids"])
-                    scores_e = elookup(g.score_id)[..., 0].contiguous()  # (T, E)
-                    vals = h[xs0["tile"], xs0["edge_src"]].contiguous()  # (T, E, F)
+                    h = src_value(senv, g.src_value_id, xs0["src_ids"]).contiguous()
+                    scores = elookup(g.score_id)[..., 0].contiguous()  # (T, E)
                     if self.layout == "csr":
-                        # per-edge scores/vals feed the kernel directly: the
-                        # row-pointer walk replaces the densify pass
                         out = tops.gat_aggregate_csr(
-                            kc0["row_ptr"], scores_e, vals, kc0["part_id"],
-                            kc0["flags"], n_parts=P, part_ptr=kc0["part_ptr"])
+                            kc0["row_ptr"], kc0["col"], scores, h,
+                            kc0["part_id"], kc0["flags"], n_parts=P,
+                            plan=kc0["plan"])
                     else:
-                        scores = tops.densify_edge_scores(
-                            scores_e, ta0["edge_dst"], ta0["n_edge"], dmax=dmax)
-                        out = tops.gat_aggregate(scores, vals, kc0["part_id"],
-                                                 kc0["flags"], n_parts=P,
-                                                 part_ptr=kc0["part_ptr"])
-                    out = torch.where(kc0["pmask"][:, None, None], out, 0.0)
+                        out = tops.gat_aggregate(
+                            kc0["edge_dst"], kc0["n_edge"], kc0["col"], scores,
+                            h, kc0["part_id"], kc0["flags"], n_parts=P,
+                            dmax=dmax, plan=kc0["plan"])
+                    # a partition without a tile has only zero rows in the
+                    # plan: no mask needed
                     publish_gather(g.acc.recv_id, out)
                     continue
 

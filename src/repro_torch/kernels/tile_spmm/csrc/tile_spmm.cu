@@ -1,29 +1,22 @@
 // ZIPPER's tiled gather on Hopper (sm_90a): the four tile kernels of
-// src/repro/kernels/tile_spmm/kernel.py, written again for a GPU.
+// src/repro/kernels/tile_spmm/kernel.py, written again for a GPU as three
+// (both segment softmaxes are kernel 3).
 //
 // On the TPU each kernel is a sequential grid over tiles: the accumulator
 // lives in VMEM scratch, a FIRST flag zeroes it and a LAST flag flushes it to
 // the tile's partition, and the matrix unit takes dense blocks (a densified
 // adjacency or score block, or a (D, E) row selector built from the CSR row
 // pointers).  GPU blocks run in parallel and in no order, so that chain
-// becomes a loop inside the block.  Tiles are partition-major and the
-// wrapper turns part_id into partition runs part_ptr (P+1): the tiles of
-// partition p are [part_ptr[p], part_ptr[p+1]).
+// becomes a loop inside the block (kernel 1: tiles are partition-major and
+// the wrapper turns part_id into partition runs part_ptr (P+1), the tiles
+// of partition p being [part_ptr[p], part_ptr[p+1])) or a plan of the edges
+// grouped by destination row (kernels 2 and 3).
 //
-// Shared design of kernels 3 and 4 (kernel 1 gives each row a warp of its
-// own, kernel 2 walks a CSR plan: see their notes).  One block of 8 warps
-// owns one (partition, 4 output rows, 128 output columns) piece of the
-// (P, D, F) output and takes its rows one at a time.  For a row, the 8
-// warps split the work — the COO softmax by column stripes of the score
-// row, the CSR softmax by the partition's tiles — and
-// each warp keeps its own running state in registers: the accumulator over
-// its lane's 4 columns and, for the softmax, the running max m and sum l.
-// The block then merges the 8 states in shared memory and writes the row.
-// Blocks never share an output element: no atomics, no second pass.  A
-// partition with no tile writes zeros.  Only real edges cost work: a warp
-// finds them by ballot (nonzero adjacency, live score, or slot inside a row
-// run) and reads each edge's 128-wide value row, four rows in flight.
-// Everything is fp32 FMA on the CUDA cores; wgmma and TMA are later work.
+// Kernel 1 gives each output row a warp of its own; kernels 2 and 3 walk an
+// edge plan (kernels/tile_spmm/plan.py): see their notes.  No kernel uses
+// atomics, and every sum runs in a fixed order: the results are
+// deterministic.  Everything is fp32 FMA on the CUDA cores; wgmma and TMA
+// are later work.
 //
 // Each C entry point takes raw pointers, the sizes and the CUDA stream,
 // launches on that stream and returns cudaGetLastError().
@@ -36,146 +29,17 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kLaneCols = 4;                 // output columns per lane
-constexpr int kCols = 32 * kLaneCols;        // output columns per block
-constexpr int kRows = 4;                     // output rows per block
-constexpr int kBatch = 4;                    // edge rows loaded at once
+constexpr int kCols = 32 * kLaneCols;        // output columns per warp
 constexpr unsigned kAll = 0xffffffffu;
 
-constexpr float kNeg = -1e30f;       // "no edge" sentinel and running-max init
+constexpr float kNeg = -1e30f;       // softmax running-max init
 constexpr float kLive = -1e29f;      // a COO score above this is a real edge
 constexpr float kMinDenom = 1e-30f;  // softmax denominator floor
-
-// A warp's running state for one output row.
-struct RowState {
-  float m, l;                 // softmax running max and sum
-  float acc[kLaneCols];       // this lane's columns col + 32 c
-};
-
-__device__ __forceinline__ void reset(RowState& st) {
-  st.m = kNeg;
-  st.l = 0.f;
-#pragma unroll
-  for (int c = 0; c < kLaneCols; ++c) st.acc[c] = 0.f;
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
   return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
-  return v;
-}
-
-// Fold up to 32 scores (one per lane, `live` marks real edges) into the
-// online softmax: m grows to cover them, l and acc are rescaled by
-// exp(m_old - m_new).  Returns this lane's probability exp(s - m_new), or 0.
-__device__ __forceinline__ float softmax_fold(RowState& st, float s, bool live) {
-  const float m_new = fmaxf(st.m, warp_max(live ? s : kNeg));
-  const float alpha = expf(st.m - m_new);
-  const float p = live ? expf(s - m_new) : 0.f;
-  st.l = st.l * alpha + warp_sum(p);
-  st.m = m_new;
-#pragma unroll
-  for (int c = 0; c < kLaneCols; ++c) st.acc[c] *= alpha;
-  return p;
-}
-
-// acc += weight[j] * rows[j][col .. col + 96 step 32] for every lane j set
-// in `mask` (warp-uniform).  `weight` and `row` are per-lane registers read
-// by shuffle; row(j) gives the value row's base pointer.  Loads of up to
-// kBatch rows are issued before their FMAs.
-template <typename RowOf>
-__device__ __forceinline__ void gather_rows(RowState& st, unsigned mask,
-                                            float weight, RowOf row_of,
-                                            int col, int F) {
-  while (mask) {
-    int lane_of[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      lane_of[u] = mask ? __ffs(mask) - 1 : -1;
-      if (mask) mask &= mask - 1;
-    }
-    float v[kBatch][kLaneCols];
-    float wu[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int j = lane_of[u] < 0 ? lane_of[0] : lane_of[u];
-      wu[u] = __shfl_sync(kAll, weight, j);
-      const float* r = row_of(j);
-#pragma unroll
-      for (int c = 0; c < kLaneCols; ++c) {
-        const int cc = col + 32 * c;
-        v[u][c] = (lane_of[u] >= 0 && cc < F) ? __ldg(r + cc) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-#pragma unroll
-      for (int c = 0; c < kLaneCols; ++c)
-        st.acc[c] = fmaf(wu[u], v[u][c], st.acc[c]);
-  }
-}
-
-// Sweep row d of every tile in [t0, t1) of a row-major (T, D, W) block in
-// 32-column stripes, warp w taking stripes w, w + 8, ... of each tile.
-// visit(t, c0, v) gets the lane's value v of the stripe starting at column
-// c0 of tile t (`fill` past the row's end).
-template <typename Visit>
-__device__ __forceinline__ void sweep_row(const float* __restrict__ block,
-                                          int t0, int t1, int d, int D, int W,
-                                          float fill, Visit visit) {
-  const int lane = threadIdx.x % 32;
-  for (int t = t0; t < t1; ++t) {
-    const float* row = block + ((size_t)t * D + d) * W;
-    for (int c0 = (threadIdx.x / 32) * 32; c0 < W; c0 += kThreads) {
-      const int c = c0 + lane;
-      visit(t, c0, c < W ? __ldg(row + c) : fill);
-    }
-  }
-}
-
-// Merge the block's 8 warp states of row d and write it: sums add; softmax
-// states rescale to the common max, out = acc / max(l, 1e-30).
-template <bool kSoftmax>
-__device__ __forceinline__ void merge_and_store(const RowState& st,
-                                                float (*s_acc)[kCols],
-                                                float* s_m, float* s_l,
-                                                float* __restrict__ out,
-                                                int p, int d, int D, int F) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int c = 0; c < kLaneCols; ++c) s_acc[warp][lane + 32 * c] = st.acc[c];
-  if (lane == 0) {
-    s_m[warp] = st.m;
-    s_l[warp] = st.l;
-  }
-  __syncthreads();
-  const int cc = (int)(blockIdx.z * kCols + threadIdx.x);
-  if (threadIdx.x < kCols && cc < F) {
-    float a = 0.f;
-    if constexpr (kSoftmax) {
-      float m = kNeg;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) m = fmaxf(m, s_m[w]);
-      float l = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float scale = expf(s_m[w] - m);
-        l = fmaf(s_l[w], scale, l);
-        a = fmaf(s_acc[w][threadIdx.x], scale, a);
-      }
-      a /= fmaxf(l, kMinDenom);
-    } else {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) a += s_acc[w][threadIdx.x];
-    }
-    out[((size_t)p * D + d) * F + cc] = a;
-  }
-  __syncthreads();   // shared state is reused by the next row
 }
 
 // ---------------------------------------------------------------------------
@@ -360,7 +224,7 @@ coo_spmm_kernel(const float* __restrict__ adj, const float* __restrict__ x,
 //    out[p, d] = sum_{t in p} sum_{e in [rp[t,d], rp[t,d+1])} w[e] x[col[e]].
 //    Bound: bytes (the plan, one slot, column index and weight per edge, the
 //    source rows read, the output), at 2 F flops per edge.
-//    It walks a CSR plan built once per tile set (kernels/tile_spmm/plan.py)
+//    It walks an edge plan built once per tile set (plan.py, csr_plan)
 //    instead of the per-tile row pointers, whose walk read one 32-byte
 //    sector per (tile, row) of the partition, at a stride of D + 1 ints,
 //    more bytes than the whole bound.  The plan lists every row's edge slots
@@ -514,108 +378,208 @@ csr_merge_kernel(const int* __restrict__ split_row,
 }
 
 // ---------------------------------------------------------------------------
-// 3. COO online segment softmax.  Replaces segment_softmax_pallas /
-//    _softmax_kernel: per destination row, softmax over the per-edge score
-//    columns of all the partition's tiles (-1e30 marks "no edge"), then the
-//    weighted sum of the edge values, in one pass with a running max m, sum
-//    l and accumulator.
-//    Bound: bytes.  The (T, D, E) score block is read once and dominates;
-//    the real work is about 2 F flops and one exp per edge.  The warps
-//    sweep the score row like kernel 1; a 32-column stripe with no live
-//    score (s > -1e29) is skipped whole, a live one folds into (m, l, acc).
-//    The constants are the reference's: -1e30 init and sentinel, live where
-//    s > -1e29, out = acc / max(l, 1e-30), so a row with no edge gives 0.
+// 3. Online segment softmax, both layouts.  Replaces segment_softmax_pallas
+//    / _softmax_kernel (COO) and segment_softmax_csr_pallas /
+//    _csr_softmax_kernel (CSR) of src/repro/kernels/tile_spmm/kernel.py:
+//    out[p, d] = sum over the edges e of row d in p's tiles of
+//    softmax_e(score) x[t, col[t, e]], and 0 for a row with no edge.
+//    Bound: bytes (the plan, a score and a column index an edge, the source
+//    rows the edges name, the output and the split rows' partials), at
+//    about 2 F flops and one exp an edge.
+//    The TPU kernels fed the matrix unit: the COO one a dense (T, D, E)
+//    score block (0.04 % live on the serving batch: 2.87 GB for 256,000
+//    edges), the CSR one a (D, E) row selector built from the row pointers,
+//    and both (T, E, F) values gathered beforehand.  Here both layouts walk
+//    the edge plan of kernel 2 (the plan builder, csr_plan or coo_plan in
+//    plan.py, does the layout's work once per tile set), read per-edge
+//    scores and column indices, and gather the source rows from the replica
+//    x (T, S, F) themselves: neither block exists.  One warp takes one plan
+//    group (whole chunks of at most 128 edges of one row, ~32 edges a warp).
+//    For 32 edges at a time each lane loads an edge's slot, target, score
+//    and column; a segmented warp scan takes the max of each chunk's piece
+//    of the window, the first piece also covering the chunk left open by
+//    the previous window (its l and acc are rescaled by exp(m_old - m_new)),
+//    so each lane takes one exp, of its own edge.  The warp then folds the
+//    edges' source rows in, kSoftInFlight rows in flight, a float4 a lane at
+//    F = 128 (a 512-byte row a warp load), and at a chunk's last edge stores
+//    acc / max(l, 1e-30) (an unsplit row) or its partial acc and (m, l)
+//    below the output (a split row).  softmax_merge_kernel then merges each
+//    split row's partials in order (m = max m_k; l and acc sum l_k and
+//    acc_k scaled by e^(m_k - m)): no atomics.  Warps past the groups write
+//    the rows with no edge as zeros.  The COO mode keeps the TPU kernel's
+//    liveness rule (an edge counts where s > -1e29), the CSR mode counts
+//    every plan edge: a template flag.  F not a multiple of 4, or x or out
+//    not 16-byte aligned, takes the column-a-lane path in 32-column slices.
+//    What holds it: the latency of the slot -> score/column -> row chain,
+//    not bytes.  4 rows at 48 registers (5 blocks a SM) came out fastest,
+//    or within 6 % of the fastest, of 2, 4, 8 and 16 rows in flight and of
+//    4 or 2 rows with registers capped for 6 or 8 blocks, in each of three
+//    calls (tools/softmax_ab.py).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-coo_softmax_kernel(const float* __restrict__ scores,
-                   const float* __restrict__ vals,
-                   const int* __restrict__ part_ptr, float* __restrict__ out,
-                   int D, int E, int F) {
-  __shared__ float s_acc[kWarps][kCols];
-  __shared__ float s_m[kWarps], s_l[kWarps];
-  const int lane = threadIdx.x % 32;
-  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
-  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
-  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
-  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
-    RowState st;
-    reset(st);
-    sweep_row(scores, t0, t1, d, D, E, kNeg, [&](int t, int e0, float s) {
-      const bool live = s > kLive;
-      const unsigned mask = __ballot_sync(kAll, live);
-      if (!mask) return;
-      const float pr = softmax_fold(st, s, live);
-      const float* ve = vals + ((size_t)t * E + e0) * F;
-      gather_rows(st, mask, pr,
-                  [&](int j) { return ve + (size_t)j * F; }, col, F);
-    });
-    merge_and_store<true>(st, s_acc, s_m, s_l, out, p, d, D, F);
-  }
-}
+constexpr int kSoftInFlight = 4;   // source rows a warp loads before their FMAs
 
-// ---------------------------------------------------------------------------
-// 4. CSR online segment softmax.  Replaces segment_softmax_csr_pallas /
-//    _csr_softmax_kernel: the same softmax over each row's CSR runs, with
-//    per-edge scores (T, E) and gathered per-edge values (T, E, F).
-//    Bound: bytes (row pointers, one score and one F-wide value row per
-//    edge, the output), at about 2 F flops and one exp per edge.  For row d
-//    the 8 warps split the partition's tiles, each lane loading one tile's
-//    run [rp[t,d], rp[t,d+1]); the warp then walks the non-empty runs 32
-//    edges at a time, folding each piece into (m, l, acc) like kernel 3.
-//    Splitting by tile spreads a hub row over the block.  Slots at or past
-//    rp[t, D] are never read: padding may be NaN.
-// ---------------------------------------------------------------------------
+template <bool kCoo, int VEC>
 __global__ void __launch_bounds__(kThreads)
-csr_softmax_kernel(const int* __restrict__ row_ptr,
-                   const float* __restrict__ scores,
-                   const float* __restrict__ vals,
-                   const int* __restrict__ part_ptr, float* __restrict__ out,
-                   int D, int E, int F) {
-  __shared__ float s_acc[kWarps][kCols];
-  __shared__ float s_m[kWarps], s_l[kWarps];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p = blockIdx.x, col = (int)blockIdx.z * kCols + lane;
-  const int t0 = part_ptr[p], t1 = part_ptr[p + 1];
-  const int d_end = min(D, (int)(blockIdx.y + 1) * kRows);
-  for (int d = (int)blockIdx.y * kRows; d < d_end; ++d) {
-    RowState st;
-    reset(st);
-    // warp w takes tiles t0 + w + 8 k; lane j of a sweep holds tile tb + 8 j
-    for (int tb = t0 + warp; tb < t1; tb += kThreads) {
-      const int tl = tb + kWarps * lane;
-      int rb = 0, re = 0;
-      if (tl < t1) {
-        const int* rp = row_ptr + (size_t)tl * (D + 1) + d;
-        rb = __ldg(rp);
-        re = __ldg(rp + 1);
+softmax_plan_kernel(const int* __restrict__ slot,
+                    const int* __restrict__ edge_tgt,
+                    const int* __restrict__ group_ptr,
+                    const int* __restrict__ zero_row,
+                    const int* __restrict__ col_idx,
+                    const float* __restrict__ scores,
+                    const float* __restrict__ x, float* __restrict__ out,
+                    float2* __restrict__ ml, int n_group, int n_zero,
+                    int n_rows, int E, int S, int F) {
+  const int lane = threadIdx.x % 32;
+  const int g = (int)blockIdx.x * kWarps + (int)threadIdx.x / 32;
+  const int col = ((int)blockIdx.y * 32 + lane) * VEC;
+  const bool has_col = col < F;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  if (g >= n_group) {                            // warp-uniform
+    const int z0 = (g - n_group) * 32;
+    if (z0 >= n_zero) return;
+    const int n = min(32, n_zero - z0);
+    const int row = lane < n ? __ldg(zero_row + z0 + lane) : 0;
+    for (int j = 0; j < n; ++j) {
+      const int r = __shfl_sync(kAll, row, j);
+      if (has_col) store_vec<VEC>(out + (size_t)r * F + col, acc);
+    }
+    return;
+  }
+  const unsigned below = (1u << lane) - 1u;      // lanes under this one
+  const unsigned upto = below | (1u << lane);
+  float m_run = kNeg, l_run = 0.f;               // the open chunk's max, sum
+  const int e_end = __ldg(group_ptr + g + 1);
+  for (int e0 = __ldg(group_ptr + g); e0 < e_end; e0 += 32) {
+    // lane j holds edge e0 + j: its source row (t S + col), target, score
+    const int e = e0 + lane;
+    const int n = min(32, e_end - e0);
+    int src = 0, tgt = 0;
+    float s = kNeg;
+    bool live = false;
+    if (e < e_end) {
+      const int sl = __ldg(slot + e);
+      tgt = __ldg(edge_tgt + e);
+      const float sc = __ldg(scores + sl);
+      live = kCoo ? sc > kLive : true;
+      if (live) s = sc;
+      src = (sl / E) * S + __ldg(col_idx + sl);
+    }
+    // pieces: the runs of one chunk in the window, each ending at its
+    // chunk's last edge or at the window's end; v = max over [head, lane]
+    const unsigned ends = __ballot_sync(kAll, tgt < 0) | (1u << (n - 1));
+    const int head = 31 - __clz(((ends << 1) | 1u) & upto);
+    const unsigned after = ends & ~below;
+    const int tail = after ? __ffs(after) - 1 : lane;
+    float v = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float w = __shfl_up_sync(kAll, v, o);
+      if (lane - o >= head) v = fmaxf(v, w);
+    }
+    float m = __shfl_sync(kAll, v, tail);        // the piece's max
+    if (head == 0) m = fmaxf(m, m_run);          // the open chunk goes on
+    const float pr = live ? expf(s - m) : 0.f;
+    const float alpha = expf(m_run - __shfl_sync(kAll, m, 0));
+    l_run *= alpha;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] *= alpha;
+    for (int j = 0; j < n; j += kSoftInFlight) {
+      float xv[kSoftInFlight][VEC];
+      float pu[kSoftInFlight];
+#pragma unroll
+      for (int u = 0; u < kSoftInFlight; ++u) {
+        const int jj = j + u;                    // warp-uniform
+        const int r = __shfl_sync(kAll, src, jj & 31);
+        pu[u] = __shfl_sync(kAll, pr, jj & 31);
+        if (jj >= n) pu[u] = 0.f;
+        if (jj < n && has_col) {
+          load_vec<VEC>(xv[u], x + (size_t)r * F + col);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) xv[u][i] = 0.f;
+        }
       }
-      unsigned runs = __ballot_sync(kAll, re > rb);
-      while (runs) {
-        const int j = __ffs(runs) - 1;
-        runs &= runs - 1;
-        const int t = tb + kWarps * j;
-        const int e_lo = __shfl_sync(kAll, rb, j);
-        const int e_hi = __shfl_sync(kAll, re, j);
-        for (int e0 = e_lo; e0 < e_hi; e0 += 32) {
-          const int e = e0 + lane;
-          const bool live = e < e_hi;
-          const float pr = softmax_fold(
-              st, live ? __ldg(scores + (size_t)t * E + e) : kNeg, live);
-          const float* vt = vals + ((size_t)t * E + e0) * F;
-          gather_rows(st, __ballot_sync(kAll, live), pr,
-                      [&](int jj) { return vt + (size_t)jj * F; }, col, F);
+#pragma unroll
+      for (int u = 0; u < kSoftInFlight; ++u) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(pu[u], xv[u][i], acc[i]);
+        l_run += pu[u];
+        const int t = __shfl_sync(kAll, tgt, (j + u) & 31);
+        const float mu = __shfl_sync(kAll, m, (j + u) & 31);
+        if (j + u < n && t < 0) {                // the chunk's last edge
+          const int row = t & 0x7fffffff;
+          if (row < n_rows) {
+            const float den = fmaxf(l_run, kMinDenom);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) acc[i] /= den;
+          } else if (lane == 0 && blockIdx.y == 0) {
+            ml[row - n_rows] = make_float2(mu, l_run);
+          }
+          if (has_col) store_vec<VEC>(out + (size_t)row * F + col, acc);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+          l_run = 0.f;
         }
       }
     }
-    merge_and_store<true>(st, s_acc, s_m, s_l, out, p, d, D, F);
+    const bool closed = __shfl_sync(kAll, tgt, n - 1) < 0;
+    const float m_last = __shfl_sync(kAll, m, n - 1);
+    m_run = closed ? kNeg : m_last;
+  }
+}
+
+// Split row i = split_row[i] merges its partials n_rows + [split_ptr[i],
+// split_ptr[i+1]) (acc rows of out, (m, l) in ml): every warp takes the
+// row's max, warp w sums partials w, w + 8, ... scaled to it, then the 8
+// warps' sums add in order.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+softmax_merge_kernel(const int* __restrict__ split_row,
+                     const int* __restrict__ split_ptr,
+                     const float2* __restrict__ ml, float* __restrict__ out,
+                     int n_rows, int F) {
+  __shared__ float s_acc[kWarps][32 * VEC];
+  __shared__ float s_l[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x;
+  const int col = ((int)blockIdx.y * 32 + lane) * VEC;
+  const int p0 = __ldg(split_ptr + i), p1 = __ldg(split_ptr + i + 1);
+  float m = kNeg;
+  for (int k = p0 + lane; k < p1; k += 32) m = fmaxf(m, ml[k].x);
+  m = warp_max(m);
+  float l = 0.f, acc[VEC];
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) acc[c] = 0.f;
+  for (int k = p0 + warp; k < p1; k += kWarps) {
+    const float2 st = ml[k];
+    const float scale = expf(st.x - m);
+    l = fmaf(st.y, scale, l);
+    if (col < F) {
+      float v[VEC];
+      load_vec<VEC>(v, out + (size_t)(n_rows + k) * F + col);
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) acc[c] = fmaf(v[c], scale, acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) s_acc[warp][VEC * lane + c] = acc[c];
+  if (lane == 0) s_l[warp] = l;
+  __syncthreads();
+  const int cc = (int)blockIdx.y * 32 * VEC + (int)threadIdx.x;
+  if (threadIdx.x < 32 * VEC && cc < F) {
+    float a = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      a += s_acc[w][threadIdx.x];
+      den += s_l[w];
+    }
+    out[(size_t)split_row[i] * F + cc] = a / fmaxf(den, kMinDenom);
   }
 }
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-inline dim3 grid_of(int P, int D, int F) {
-  return dim3(P, ceil_div(D, kRows), ceil_div(F, kCols));
-}
 
 }  // namespace
 
@@ -677,25 +641,40 @@ int zipper_tile_spmm_csr(const void* slot, const void* edge_tgt,
   return (int)cudaGetLastError();
 }
 
-int zipper_segment_softmax_coo(const void* scores, const void* vals,
-                               const void* part_ptr, void* out,
-                               int P, int D, int E, int F, void* stream) {
-  if (P > 0 && D > 0 && F > 0) {
-    coo_softmax_kernel<<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)scores, (const float*)vals, (const int*)part_ptr,
-        (float*)out, D, E, F);
-  }
-  return (int)cudaGetLastError();
-}
-
-int zipper_segment_softmax_csr(const void* row_ptr, const void* scores,
-                               const void* vals, const void* part_ptr,
-                               void* out, int P, int D, int E, int F,
-                               void* stream) {
-  if (P > 0 && D > 0 && F > 0) {
-    csr_softmax_kernel<<<grid_of(P, D, F), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)row_ptr, (const float*)scores, (const float*)vals,
-        (const int*)part_ptr, (float*)out, D, E, F);
+int zipper_segment_softmax(const void* slot, const void* edge_tgt,
+                           const void* group_ptr, const void* zero_row,
+                           const void* col, const void* scores, const void* x,
+                           const void* split_row, const void* split_ptr,
+                           void* out, void* ml, int n_group, int n_zero,
+                           int n_split, int n_rows, int E, int S, int F,
+                           int coo, void* stream) {
+  const int n_warps = n_group + ceil_div(n_zero, 32);
+  if (n_warps > 0 && F > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const bool vec4 = F % 4 == 0 && (size_t)x % 16 == 0 && (size_t)out % 16 == 0;
+    const int cols = vec4 ? 128 : 32;
+    const dim3 grid(ceil_div(n_warps, kWarps), ceil_div(F, cols));
+    const dim3 merge(n_split, ceil_div(F, cols));
+#define ZIPPER_SOFTMAX(COO, VEC)                                               \
+    softmax_plan_kernel<COO, VEC><<<grid, kThreads, 0, st>>>(                  \
+        (const int*)slot, (const int*)edge_tgt, (const int*)group_ptr,         \
+        (const int*)zero_row, (const int*)col, (const float*)scores,           \
+        (const float*)x, (float*)out, (float2*)ml, n_group, n_zero, n_rows,    \
+        E, S, F);                                                              \
+    if (n_split > 0)                                                           \
+      softmax_merge_kernel<VEC><<<merge, kThreads, 0, st>>>(                   \
+          (const int*)split_row, (const int*)split_ptr, (const float2*)ml,     \
+          (float*)out, n_rows, F);
+    if (coo && vec4) {
+      ZIPPER_SOFTMAX(true, 4)
+    } else if (coo) {
+      ZIPPER_SOFTMAX(true, 1)
+    } else if (vec4) {
+      ZIPPER_SOFTMAX(false, 4)
+    } else {
+      ZIPPER_SOFTMAX(false, 1)
+    }
+#undef ZIPPER_SOFTMAX
   }
   return (int)cudaGetLastError();
 }

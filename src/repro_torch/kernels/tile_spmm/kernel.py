@@ -1,17 +1,19 @@
-"""ctypes wrappers for the four CUDA tile kernels in ``csrc/tile_spmm.cu``.
+"""ctypes wrappers for the CUDA tile kernels in ``csrc/tile_spmm.cu``.
 
-Each wrapper keeps the signature of its Pallas counterpart in
+Each wrapper ends like its Pallas counterpart in
 ``repro.kernels.tile_spmm.kernel`` — ``(..., part_id, flags, *, n_parts)``
 — checks device, dtype (float32 values, int32 indices), shape and
 contiguity, allocates the output with ``torch.empty`` and launches on
 PyTorch's current stream.  ``flags`` (the TPU's FIRST/LAST markers) is
-shape-checked only: the CUDA kernels walk partition runs ``part_ptr``
-instead.  A caller that binds once passes ``part_ptr=`` (built on the host
-by :func:`partition_ptr`) and the CSR SpMM's ``plan=`` (:mod:`.plan`); a
-wrapper given neither derives it from ``part_id`` on the device, which
-syncs the host (``torch.bincount``, the plan's sizes).  Tiles must be
-partition-major (:func:`check_partition_major`, run once per bind on the
-host array).
+shape-checked only: the CUDA kernels walk partition runs ``part_ptr`` or
+an edge plan instead.  The segment softmaxes take per-edge operands, not
+the TPU's: scores (T, E), ``col`` (T, E) and the source replica ``xsrc``
+(T, S, F) in place of a dense score block and gathered (T, E, F) values.
+A caller that binds once passes ``part_ptr=`` (built on the host by
+:func:`partition_ptr`) and the ``plan=`` (:mod:`.plan`); a wrapper given
+neither derives it on the device, which syncs the host
+(``torch.bincount``, the plan's sizes).  Tiles must be partition-major
+(:func:`check_partition_major`, run once per bind on the host array).
 
 Every launch adds one to its kernel's entry in :data:`LAUNCHES`; a wrapper
 given anything but CUDA tensors raises.  The plain PyTorch versions live in
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .plan import CsrPlan, csr_plan
+from .plan import EdgePlan, coo_plan, csr_plan
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "tile_spmm.cu"
 
@@ -41,8 +43,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     "zipper_tile_spmm_coo": [_P] * 4 + [_I] * 4 + [_P],
     "zipper_tile_spmm_csr": [_P] * 10 + [_I] * 7 + [_P],
-    "zipper_segment_softmax_coo": [_P] * 4 + [_I] * 4 + [_P],
-    "zipper_segment_softmax_csr": [_P] * 5 + [_I] * 4 + [_P],
+    "zipper_segment_softmax": [_P] * 11 + [_I] * 8 + [_P],
 }
 _lib: Optional[ctypes.CDLL] = None
 
@@ -133,6 +134,21 @@ def _part_ptr(part_id: torch.Tensor, n_parts: int,
     return ptr
 
 
+def _check_plan(plan: EdgePlan, n_rows: int, device: torch.device):
+    """Check an edge plan against the tiles' row count; return its group,
+    zero-row and split-row counts."""
+    if plan.n_rows != n_rows:
+        raise ValueError(f"plan has {plan.n_rows} rows, the tiles {n_rows}")
+    n_edge = plan.slot.shape[0]
+    n_group, n_zero = plan.group_ptr.shape[0] - 1, plan.zero_row.shape[0]
+    n_split = plan.split_row.shape[0]
+    for name, shape in (("slot", (n_edge,)), ("edge_tgt", (n_edge,)),
+                        ("group_ptr", (n_group + 1,)), ("zero_row", (n_zero,)),
+                        ("split_row", (n_split,)), ("split_ptr", (n_split + 1,))):
+        _check(f"plan.{name}", getattr(plan, name), torch.int32, shape, device)
+    return n_group, n_zero, n_split
+
+
 def _launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -143,7 +159,7 @@ def _launch(kernel: str, entry: str, device: torch.device, *args) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the four kernels
+# the kernels
 # ---------------------------------------------------------------------------
 
 def tile_spmm_cuda(adj, xsrc, part_id, flags, *, n_parts: int,
@@ -165,10 +181,10 @@ def tile_spmm_cuda(adj, xsrc, part_id, flags, *, n_parts: int,
 
 
 def tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags, *,
-                       n_parts: int, plan: Optional[CsrPlan] = None) -> torch.Tensor:
+                       n_parts: int, plan: Optional[EdgePlan] = None) -> torch.Tensor:
     """CSR tile SpMM: row_ptr (T, D+1) and col (T, E) int32; w (T, E);
     xsrc (T, S, F).  Returns (P, D, F); padded edge slots are never read.
-    ``plan`` is the tile set's :class:`~.plan.CsrPlan` (built here, with a
+    ``plan`` is the tile set's :class:`~.plan.EdgePlan` (built here, with a
     host sync, when absent); it holds the partition runs, so this wrapper
     takes no ``part_ptr``."""
     dev = _device_of(row_ptr)
@@ -184,15 +200,7 @@ def tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags, *,
     if plan is None:
         plan = csr_plan(row_ptr, part_id, n_parts, E)
     n_rows = n_parts * D
-    if plan.n_rows != n_rows:
-        raise ValueError(f"plan has {plan.n_rows} rows, the tiles {n_rows}")
-    n_edge = plan.slot.shape[0]
-    n_group, n_zero = plan.group_ptr.shape[0] - 1, plan.zero_row.shape[0]
-    n_split = plan.split_row.shape[0]
-    for name, shape in (("slot", (n_edge,)), ("edge_tgt", (n_edge,)),
-                        ("group_ptr", (n_group + 1,)), ("zero_row", (n_zero,)),
-                        ("split_row", (n_split,)), ("split_ptr", (n_split + 1,))):
-        _check(f"plan.{name}", getattr(plan, name), torch.int32, shape, dev)
+    n_group, n_zero, n_split = _check_plan(plan, n_rows, dev)
     # the split rows' partial sums live in rows past the output
     buf = torch.empty((n_rows + plan.n_partial, F), dtype=torch.float32,
                       device=dev)
@@ -204,43 +212,72 @@ def tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags, *,
     return buf[:n_rows].view(n_parts, D, F)
 
 
-def segment_softmax_cuda(scores, vals, part_id, flags, *, n_parts: int,
-                         part_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """COO online segment softmax: scores (T, D, E) per-edge columns with
-    the -1e30 sentinel; vals (T, E, F).  Returns (P, D, F)."""
-    dev = _device_of(scores)
-    T, D, E = scores.shape
-    F = vals.shape[-1]
-    _check("scores", scores, torch.float32, (T, D, E), dev)
-    _check("vals", vals, torch.float32, (T, E, F), dev)
-    _check("part_id", part_id, torch.int32, (T,), dev)
-    _check("flags", flags, torch.int32, (T,), dev)
-    out = torch.empty((n_parts, D, F), dtype=torch.float32, device=dev)
-    ptr = _part_ptr(part_id, n_parts, part_ptr)
-    _launch("segment_softmax", "zipper_segment_softmax_coo", dev,
-            scores.data_ptr(), vals.data_ptr(), ptr.data_ptr(), out.data_ptr(),
-            n_parts, D, E, F)
-    return out
-
-
-def segment_softmax_csr_cuda(row_ptr, scores, vals, part_id, flags, *,
-                             n_parts: int,
-                             part_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """CSR online segment softmax: row_ptr (T, D+1) int32; scores (T, E);
-    vals (T, E, F) per-edge values.  Returns (P, D, F)."""
-    dev = _device_of(row_ptr)
+def _segment_softmax(kernel: str, coo: bool, plan: EdgePlan, col, scores,
+                     xsrc, n_parts: int, D: int, dev) -> torch.Tensor:
+    """Launch the plan-walking softmax (one C entry point, ``coo`` picks the
+    liveness rule) and return the (P, D, F) output."""
     T, E = scores.shape
-    D = row_ptr.shape[1] - 1
-    F = vals.shape[-1]
-    _check("row_ptr", row_ptr, torch.int32, (T, D + 1), dev)
+    S, F = xsrc.shape[-2:]
+    n_rows = n_parts * D
+    n_group, n_zero, n_split = _check_plan(plan, n_rows, dev)
+    # the split rows' partial (acc; m, l) live in rows past the output
+    buf = torch.empty((n_rows + plan.n_partial, F), dtype=torch.float32,
+                      device=dev)
+    ml = torch.empty((plan.n_partial, 2), dtype=torch.float32, device=dev)
+    _launch(kernel, "zipper_segment_softmax", dev, plan.slot.data_ptr(),
+            plan.edge_tgt.data_ptr(), plan.group_ptr.data_ptr(),
+            plan.zero_row.data_ptr(), col.data_ptr(), scores.data_ptr(),
+            xsrc.data_ptr(), plan.split_row.data_ptr(), plan.split_ptr.data_ptr(),
+            buf.data_ptr(), ml.data_ptr(), n_group, n_zero, n_split, n_rows,
+            E, S, F, int(coo))
+    return buf[:n_rows].view(n_parts, D, F)
+
+
+def segment_softmax_cuda(edge_dst, n_edge, col, scores, xsrc, part_id, flags,
+                         *, n_parts: int, dmax: int,
+                         plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """COO online segment softmax on per-edge operands: edge_dst, col
+    (T, E) int32 and n_edge (T,) int32 (the tiles' edge lists); scores
+    (T, E) float32, an edge counting where its score is above -1e29; xsrc
+    (T, S, F).  Returns (P, dmax, F): out[p, d] = sum over the edges of
+    row d in p's tiles of softmax(score) * xsrc[t, col[t, e]], 0 for a row
+    with no live edge.  ``plan`` is the tiles' :func:`~.plan.coo_plan`
+    (built here, with host syncs, when absent).  Padded slots are never
+    read."""
+    dev = _device_of(scores)
+    T, E = scores.shape
+    S, F = xsrc.shape[-2:]
+    _check("edge_dst", edge_dst, torch.int32, (T, E), dev)
+    _check("n_edge", n_edge, torch.int32, (T,), dev)
+    _check("col", col, torch.int32, (T, E), dev)
     _check("scores", scores, torch.float32, (T, E), dev)
-    _check("vals", vals, torch.float32, (T, E, F), dev)
+    _check("xsrc", xsrc, torch.float32, (T, S, F), dev)
     _check("part_id", part_id, torch.int32, (T,), dev)
     _check("flags", flags, torch.int32, (T,), dev)
-    out = torch.empty((n_parts, D, F), dtype=torch.float32, device=dev)
-    ptr = _part_ptr(part_id, n_parts, part_ptr)
-    _launch("segment_softmax_csr", "zipper_segment_softmax_csr", dev,
-            row_ptr.data_ptr(), scores.data_ptr(), vals.data_ptr(),
-            ptr.data_ptr(), out.data_ptr(),
-            n_parts, D, E, F)
-    return out
+    if plan is None:
+        plan = coo_plan(edge_dst, n_edge, part_id, n_parts, dmax)
+    return _segment_softmax("segment_softmax", True, plan, col, scores, xsrc,
+                            n_parts, dmax, dev)
+
+
+def segment_softmax_csr_cuda(row_ptr, col, scores, xsrc, part_id, flags, *,
+                             n_parts: int,
+                             plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """CSR online segment softmax: row_ptr (T, D+1) and col (T, E) int32;
+    scores (T, E); xsrc (T, S, F).  Returns (P, D, F), every real slot
+    counting.  ``plan`` is the tiles' :func:`~.plan.csr_plan` (built here,
+    with host syncs, when absent)."""
+    dev = _device_of(row_ptr)
+    T, E = col.shape
+    D = row_ptr.shape[1] - 1
+    S, F = xsrc.shape[-2:]
+    _check("row_ptr", row_ptr, torch.int32, (T, D + 1), dev)
+    _check("col", col, torch.int32, (T, E), dev)
+    _check("scores", scores, torch.float32, (T, E), dev)
+    _check("xsrc", xsrc, torch.float32, (T, S, F), dev)
+    _check("part_id", part_id, torch.int32, (T,), dev)
+    _check("flags", flags, torch.int32, (T,), dev)
+    if plan is None:
+        plan = csr_plan(row_ptr, part_id, n_parts, E)
+    return _segment_softmax("segment_softmax_csr", False, plan, col, scores,
+                            xsrc, n_parts, D, dev)

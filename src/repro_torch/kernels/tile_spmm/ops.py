@@ -2,14 +2,15 @@
 
 ``densify_tiles`` turns a ZIPPER :class:`TileSet` (or each bucket of a
 :class:`BucketedTileSet`) into the block-dense adjacency the COO kernel
-consumes; ``densify_edge_weights`` / ``densify_edge_scores`` do the same on
-the device for per-edge values computed at run time.  ``spmm`` /
-``gat_aggregate`` / ``spmm_csr`` / ``gat_aggregate_csr`` are the entry
-points the runner calls: CPU tensors take the plain PyTorch version
-(``ref.py``), CUDA tensors launch the hand-written kernel (``kernel.py``),
-which raises rather than falling back.  The runner passes what it built at
-bind time: ``part_ptr`` (partition runs) and, for the CSR SpMM, the CSR
-``plan``.
+consumes; ``densify_edge_weights`` does the same on the device for per-edge
+weights computed at run time.  ``densify_edge_scores`` builds ``repro``'s
+dense (T, D, E) score block, the TPU kernel's operand: no kernel of the
+port takes it.  ``spmm`` / ``gat_aggregate`` / ``spmm_csr`` /
+``gat_aggregate_csr`` are the entry points the runner calls: CPU tensors
+take the plain PyTorch version (``ref.py``), CUDA tensors launch the
+hand-written kernel (``kernel.py``), which raises rather than falling back.
+The runner passes what it built at bind time: ``part_ptr`` (partition
+runs) for the COO SpMM and the edge ``plan`` for the others.
 """
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ import torch
 from ...core.tiling import BucketedTileSet, TileSet
 from . import kernel as K
 from . import ref as R
-from .plan import CsrPlan
+from .plan import EdgePlan
 
-_NEG = -1e30  # matches the segment-softmax kernel's "no edge" sentinel
+_NEG = -1e30  # matches the TPU segment-softmax kernel's "no edge" sentinel
 
 
 def densify_tiles(tiles: Union[TileSet, BucketedTileSet],
@@ -85,7 +86,8 @@ def densify_edge_weights(weights, edge_dst, edge_src, n_edge, *,
 
 
 def densify_edge_scores(scores, edge_dst, n_edge, *, dmax: int) -> torch.Tensor:
-    """Per-edge-COLUMN score densification for the segment-softmax kernel.
+    """Per-edge-COLUMN score densification for ``repro``'s segment-softmax
+    kernel (the port's kernels take the per-edge scores themselves).
 
     scores: (T, Emax) per-edge attention logits.  Returns (T, dmax, Emax)
     blocks where column ``j`` holds edge ``j``'s score at its destination row
@@ -110,12 +112,21 @@ def spmm(adj, xsrc, part_id, flags, *, n_parts: int,
                             part_ptr=part_ptr)
 
 
-def gat_aggregate(scores, vals, part_id, flags, *, n_parts: int,
-                  part_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+def gat_aggregate(edge_dst, n_edge, col, scores, xsrc, part_id, flags, *,
+                  n_parts: int, dmax: int,
+                  plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """COO online segment softmax on per-edge operands: edge_dst/col/scores
+    (T, E), n_edge (T,), xsrc (T, S, F).  ``plan`` (:func:`~.plan.coo_plan`
+    of these tiles): the CUDA kernel walks it; on the CPU the plain version
+    walks it the same way."""
     if scores.device.type == "cpu":
-        return R.segment_softmax_ref(scores, vals, part_id, n_parts)
-    return K.segment_softmax_cuda(scores, vals, part_id, flags, n_parts=n_parts,
-                                  part_ptr=part_ptr)
+        if plan is not None:
+            return R.segment_softmax_plan_ref(plan, col, scores, xsrc, n_parts,
+                                              coo=True)
+        return R.segment_softmax_coo_ref(edge_dst, n_edge, col, scores, xsrc,
+                                         part_id, n_parts, dmax)
+    return K.segment_softmax_cuda(edge_dst, n_edge, col, scores, xsrc, part_id,
+                                  flags, n_parts=n_parts, dmax=dmax, plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +135,7 @@ def gat_aggregate(scores, vals, part_id, flags, *, n_parts: int,
 # ---------------------------------------------------------------------------
 
 def spmm_csr(row_ptr, col, w, xsrc, part_id, flags, *, n_parts: int,
-             plan: Optional[CsrPlan] = None) -> torch.Tensor:
+             plan: Optional[EdgePlan] = None) -> torch.Tensor:
     """``plan`` (:func:`~.plan.csr_plan` of these tiles): the CUDA kernel
     walks it; on the CPU the plain version walks it the same way."""
     if row_ptr.device.type == "cpu":
@@ -135,9 +146,16 @@ def spmm_csr(row_ptr, col, w, xsrc, part_id, flags, *, n_parts: int,
                                 n_parts=n_parts, plan=plan)
 
 
-def gat_aggregate_csr(row_ptr, scores, vals, part_id, flags, *, n_parts: int,
-                      part_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+def gat_aggregate_csr(row_ptr, col, scores, xsrc, part_id, flags, *,
+                      n_parts: int,
+                      plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """CSR online segment softmax: col/scores (T, E), xsrc (T, S, F);
+    ``plan`` as for :func:`spmm_csr`."""
     if row_ptr.device.type == "cpu":
-        return R.segment_softmax_csr_ref(row_ptr, scores, vals, part_id, n_parts)
-    return K.segment_softmax_csr_cuda(row_ptr, scores, vals, part_id, flags,
-                                      n_parts=n_parts, part_ptr=part_ptr)
+        if plan is not None:
+            return R.segment_softmax_plan_ref(plan, col, scores, xsrc, n_parts,
+                                              coo=False)
+        return R.segment_softmax_csr_ref(row_ptr, col, scores, xsrc, part_id,
+                                         n_parts)
+    return K.segment_softmax_csr_cuda(row_ptr, col, scores, xsrc, part_id,
+                                      flags, n_parts=n_parts, plan=plan)

@@ -1,18 +1,21 @@
-"""Plain PyTorch versions of the four tile kernels (``repro``'s ``ref.py``).
+"""Plain PyTorch versions of the tile kernels (``repro``'s ``ref.py``).
 
 Same functions as the CUDA kernels, written as whole-batch tensor ops: the
 CPU path of :mod:`.ops` and the yardstick ``chip_smoke.py`` and the tests
-hold each kernel against.  The CSR versions select the real edge slots
-(``e < row_ptr[t, -1]``) before touching any value, so padded slots may hold
-NaN, and they never build the TPU's (T, D, E) row selector.
-``tile_spmm_csr_plan_ref`` is the CSR SpMM walked through a
-:class:`~.plan.CsrPlan`, as the CUDA kernel walks it.
+hold each kernel against.  The edge-list versions select the real edge
+slots (``e < row_ptr[t, -1]`` or ``e < n_edge[t]``) before touching any
+value, so padded slots may hold NaN, and they never build the TPU's dense
+(T, D, E) score block or row selector.  ``tile_spmm_csr_plan_ref`` and
+``segment_softmax_plan_ref`` walk an :class:`~.plan.EdgePlan` as the CUDA
+kernels walk it.  ``segment_softmax_ref`` keeps ``repro``'s dense COO
+operands: the counterpart of its function, off the runner's path.
 """
 from __future__ import annotations
 
 import torch
 
 _NEG = -1e30
+_LIVE = -1e29      # a COO score above this is a real edge (the reference's rule)
 
 
 def tile_spmm_ref(adj, xsrc, part_id, n_parts: int) -> torch.Tensor:
@@ -33,6 +36,15 @@ def _csr_edges(row_ptr, part_id, n_edge_cols: int):
     row = torch.searchsorted(rp[:, 1:].contiguous(), e.contiguous(), right=True)
     t, slot = torch.nonzero(e < rp[:, -1:], as_tuple=True)
     return t, slot, part_id.long()[t] * D + row[t, slot]
+
+
+def _coo_edges(edge_dst, n_edge, part_id, dmax: int):
+    """(tile, slot, flat destination row) of every real COO edge slot
+    ``e < n_edge[t]``; the flat row is ``part_id[t] * dmax + edge_dst[t, e]``."""
+    E = edge_dst.shape[1]
+    e = torch.arange(E, device=edge_dst.device)
+    t, slot = torch.nonzero(e[None, :] < n_edge.long()[:, None], as_tuple=True)
+    return t, slot, part_id.long()[t] * dmax + edge_dst.long()[t, slot]
 
 
 def tile_spmm_csr_ref(row_ptr, col, w, xsrc, part_id, n_parts: int) -> torch.Tensor:
@@ -65,22 +77,77 @@ def tile_spmm_csr_plan_ref(plan, col, w, xsrc, n_parts: int) -> torch.Tensor:
     return out.view(n_parts, -1, F)
 
 
-def segment_softmax_csr_ref(row_ptr, scores, vals, part_id,
-                            n_parts: int) -> torch.Tensor:
-    """CSR softmax: scores (T, E) per edge; vals (T, E, F) per edge."""
-    D = row_ptr.shape[1] - 1
-    F = vals.shape[-1]
-    t, slot, dest = _csr_edges(row_ptr, part_id, scores.shape[1])
-    s = scores.float()[t, slot]
-    dev = scores.device
-    m = torch.full((n_parts * D,), _NEG, dtype=torch.float32, device=dev)
+def _edge_softmax(dest, s, x, n_rows: int, coo: bool):
+    """Per row r: softmax over its edges' scores ``s`` (where ``dest == r``)
+    weighting their rows of ``x`` (n_edge, F).  ``coo``: an edge counts only
+    where s > -1e29 (``_softmax_kernel``'s rule); else every edge counts.
+    Rows with no edge give 0.  Returns (m, l, acc): the row max, the sum of
+    exp(s - m) and the weighted sum of x, unnormalized."""
+    dev = s.device
+    live = s > _LIVE if coo else torch.ones_like(s, dtype=torch.bool)
+    s = torch.where(live, s.float(), _NEG)
+    m = torch.full((n_rows,), _NEG, dtype=torch.float32, device=dev)
     m.scatter_reduce_(0, dest, s, "amax", include_self=True)
-    p = torch.exp(s - m[dest])
-    den = torch.zeros((n_parts * D,), dtype=torch.float32, device=dev)
+    p = torch.where(live, torch.exp(s - m[dest]), 0.0)
+    den = torch.zeros((n_rows,), dtype=torch.float32, device=dev)
     den.index_add_(0, dest, p)
-    acc = torch.zeros((n_parts * D, F), dtype=torch.float32, device=dev)
-    acc.index_add_(0, dest, p[:, None] * vals.float()[t, slot])
-    return (acc / den.clamp_min(1e-30)[:, None]).view(n_parts, D, F)
+    acc = torch.zeros((n_rows, x.shape[-1]), dtype=torch.float32, device=dev)
+    acc.index_add_(0, dest, p[:, None] * x.float())
+    return m, den, acc
+
+
+def _edge_rows(t, slot, col, xsrc):
+    """xsrc[t, col[t, slot]] for every listed edge: (n_edge, F)."""
+    return xsrc.float()[t, col.long()[t, slot]]
+
+
+def segment_softmax_csr_ref(row_ptr, col, scores, xsrc, part_id,
+                            n_parts: int) -> torch.Tensor:
+    """CSR softmax: row_ptr (T, D+1); col/scores (T, E) per edge; xsrc
+    (T, S, F).  out[p, d] = sum over the edges of row d in p's tiles of
+    softmax(score) * xsrc[t, col[t, e]]; every real slot counts."""
+    D = row_ptr.shape[1] - 1
+    t, slot, dest = _csr_edges(row_ptr, part_id, scores.shape[1])
+    _, den, acc = _edge_softmax(dest, scores[t, slot], _edge_rows(t, slot, col, xsrc),
+                                n_parts * D, coo=False)
+    return (acc / den.clamp_min(1e-30)[:, None]).view(n_parts, D, -1)
+
+
+def segment_softmax_coo_ref(edge_dst, n_edge, col, scores, xsrc, part_id,
+                            n_parts: int, dmax: int) -> torch.Tensor:
+    """COO softmax on per-edge operands: edge_dst/col/scores (T, E), n_edge
+    (T,), xsrc (T, S, F); an edge counts where its score is above -1e29.
+    The same function as :func:`segment_softmax_ref` on the densified
+    scores and ``vals = xsrc[t, col]``."""
+    t, slot, dest = _coo_edges(edge_dst, n_edge, part_id, dmax)
+    _, den, acc = _edge_softmax(dest, scores[t, slot], _edge_rows(t, slot, col, xsrc),
+                                n_parts * dmax, coo=True)
+    return (acc / den.clamp_min(1e-30)[:, None]).view(n_parts, dmax, -1)
+
+
+def segment_softmax_plan_ref(plan, col, scores, xsrc, n_parts: int, *,
+                             coo: bool) -> torch.Tensor:
+    """Either softmax as the kernel walks ``plan`` (:class:`~.plan.EdgePlan`):
+    every chunk folds its edges into a partial (m, l, acc) on its target
+    row; an unsplit row is acc / max(l, 1e-30), a split row merges its
+    chunks' partials (m = max m_k, l = sum l_k e^(m_k - m), acc likewise)
+    first.  col/scores (T, E); xsrc (T, S, F); ``coo`` picks the liveness
+    rule."""
+    T, E = col.shape
+    S, F = xsrc.shape[-2:]
+    slot = plan.slot.long()
+    x = xsrc.reshape(T * S, F)[(slot // E) * S + col.reshape(-1).long()[slot]]
+    m, den, acc = _edge_softmax(plan.edge_tgt.long() & 0x7FFFFFFF,
+                                scores.reshape(-1)[slot], x,
+                                plan.n_rows + plan.n_partial, coo=coo)
+    n = plan.n_rows
+    ptr = plan.split_ptr.long()
+    owner = torch.repeat_interleave(plan.split_row.long(), ptr[1:] - ptr[:-1])
+    m_row = m[:n].clone().scatter_reduce_(0, owner, m[n:], "amax")
+    scale = torch.exp(m[n:] - m_row[owner])
+    den_row = den[:n].index_add(0, owner, den[n:] * scale)
+    acc_row = acc[:n].index_add(0, owner, acc[n:] * scale[:, None])
+    return (acc_row / den_row.clamp_min(1e-30)[:, None]).view(n_parts, -1, F)
 
 
 def segment_softmax_ref(scores, vals, part_id, n_parts: int) -> torch.Tensor:

@@ -153,6 +153,66 @@ def test_csr_bind_carries_the_plan(name, monkeypatch):
     assert _err(name, got, oracle) < _tol(name)
 
 
+@pytest.mark.parametrize("layout", ["coo", "csr"])
+def test_gat_bind_walks_one_softmax_plan(layout, monkeypatch):
+    """On gat, `bind` builds the softmax batch's edge plan once (coo_plan or
+    csr_plan, over the unbucketed tiles); every softmax call walks that plan
+    (the kernel's order); the runner never densifies scores and builds no
+    (T, D, E) score block and no (T, E, F) value block; the result matches
+    the oracle, on a graph whose hub row of parallel edges spans 3 chunks."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels.tile_spmm import ops as tops
+    from repro_torch.kernels.tile_spmm import plan as tplan
+    g, jtr, ttr, params, inputs = _setup("gat", 2, V=90, E=420)
+    hub = 3 * tplan.CHUNK_SIZE + 10      # parallel in-edges of vertex 7
+    src = np.concatenate([g.src, np.arange(hub, dtype=np.int32) % 30])
+    dst = np.concatenate([g.dst, np.full(hub, 7, np.int32)])
+    g = jgraphs.Graph(src=src, dst=dst, n_vertices=90)
+    inputs = jmodels.init_inputs(jtr, g, seed=2)
+    oracle = np.asarray(jexecutor.run_reference(jtr, g, inputs, params)[0])
+    tiles = ttiling.build_tiles(g, 3, 3, n_buckets=2, layout=layout)[0]
+    runner = tpipeline.PipelinedRunner(tcompiler.compile_gnn(ttr), g, tiles,
+                                       device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("densify_edge_scores on the gat path")
+
+    monkeypatch.setattr(tops, "densify_edge_scores", refuse)
+    builder = "csr_plan" if layout == "csr" else "coo_plan"
+    built = []
+    build = getattr(tpipeline, builder)
+    monkeypatch.setattr(tpipeline, builder,
+                        lambda *a, **k: built.append(1) or build(*a, **k))
+    operands = runner.bind(tiles)
+    plan = operands[3]["plan"]
+    assert len(built) == 1
+    assert int(plan.split_ptr.diff().max()) >= 3
+    assert plan.slot.numel() == g.n_edges      # the unbucketed batch's edges
+
+    walks = []
+    walk = tops.R.segment_softmax_plan_ref
+    monkeypatch.setattr(tops.R, "segment_softmax_plan_ref",
+                        lambda p, *a, **k: walks.append(p) or walk(p, *a, **k))
+    T, E = tiles.source.edge_src.shape
+    dense = {(T, runner.dmax, E), (T, E, DIM)}
+    shapes = []
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else [out]):
+                if isinstance(o, torch.Tensor):
+                    shapes.append(tuple(o.shape))
+            return out
+
+    with Shapes():
+        got = runner(inputs, params, operands=operands)[0].numpy()
+    assert len(walks) == 2 and all(w is plan for w in walks)
+    assert shapes and not dense & set(shapes)
+    assert _err("gat", got, oracle) < _tol("gat")
+
+
 def test_entry_points_run_on_cuda_unless_told_otherwise():
     """With no card visible, omitting ``device`` raises instead of quietly
     running on the CPU."""
