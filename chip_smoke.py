@@ -52,12 +52,29 @@ Phases, each printing one JSON line or more:
    ``forward`` at every position (2e-3 dense, 5e-3 MLA, scaled by
    max(1, |ref|): the reference's own tolerances); ``make_prefill_step`` on
    one 4,096-token prompt, twice (first and warm seconds) with its peak
-   memory; a ``torch.profiler`` breakdown of 8 decode steps and a prefill.
+   memory; a ``torch.profiler`` breakdown of 8 decode steps and a prefill;
+8. tiled: ``run_tiled`` (the interpreter engine) on phase 4's batch padded
+   by the server's ``ShapeRegistry`` (40,000 V), tiled as served (COO) and
+   by ``grid_tile(64, 64, layout="csr")``, 2-layer gcn and gat at width
+   128, kernel dispatch on and off, each pass twice (first and warm
+   seconds), against ``run_reference``;
+9. async serving: ``AsyncInferenceServer`` with 2-layer gcn and gat
+   (``max_batch=16``, warmed on the class), 64 single-graph requests of
+   the class to each model with a 2 s deadline; the ``ServeMetrics``
+   snapshot, 0 builds after warm-up, 4 sampled requests a model against
+   ``run_reference`` of their graph;
+10. autotune: ``tune_for_class`` for 2-layer gcn on phase 4's merged graph
+   (24 simulator evaluations, the 2 finalists timed 5 times each by CUDA
+   events on the card), then the class served through
+   ``InferenceServer(tune_cache=...)``: the tuned registration key, the
+   outputs against ``run_reference``, no build on a repeat submit.
 
-Launch counters are set to 0 before phase 4 and read after phase 5, and set
-to 0 again before phase 7 and read after it; every kernel must have
-launched on its path.  Then one ``{"kernels": [...]}`` line (all six), the
-``nvidia-smi`` name/power line, and last ``{"ok": true, "device": ...}``.
+Launch counters are set to 0 before phase 4 and read after phase 5, set to
+0 again before phase 7 and read after it, and likewise around each of
+phases 8, 9 and 10; every kernel must have launched on its path (in phase
+8 all four tile kernels).  Then one ``{"kernels": [...]}`` line (all six,
+launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
+last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
 so does a machine without a visible CUDA device.  Weights and inputs come
 from fixed seeds.  fp32 throughout (phase 6 adds bf16), TF32 off.
@@ -936,6 +953,199 @@ def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the tiled interpreter, the async tier, the tuned route
+# ---------------------------------------------------------------------------
+
+def tiled_phase(graphs, dev, *, width=WIDTH, grid=64):
+    """``run_tiled`` on the serving batch, as served (COO tiles of the
+    server's canonical shapes) and as CSR tiles of the same padded graph,
+    with kernel dispatch on and off, against ``run_reference``."""
+    import torch
+    from repro_torch.core import compiler
+    from repro_torch.core.executor import run_reference, run_tiled
+    from repro_torch.core.tiling import grid_tile
+    from repro_torch.gnn import graphs as G
+    from repro_torch.gnn import models as M
+    from repro_torch.serve import ShapeRegistry
+
+    padded, coo_tiles, _, _ = ShapeRegistry().canonical(
+        "shapes", G.batch_graphs(graphs).graph)
+    csr_tiles = grid_tile(padded, grid, grid, sparse=True, layout="csr")
+    for name in ("gcn", "gat"):
+        tr = M.trace_stacked(name, 2, width, width, width)
+        c = compiler.compile_gnn(tr)
+        params = M.init_params(tr, seed=0)
+        inputs = M.init_inputs(tr, padded, seed=0)
+        want = run_reference(tr, padded, inputs, params, device=dev)[0]
+        for tiles in (coo_tiles, csr_tiles):
+            for dispatch in (True, False):
+                secs = []
+                for _ in range(2):              # the first pass, a warm one
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = run_tiled(c, padded, tiles, inputs, params,
+                                    kernel_dispatch=dispatch, device=dev)[0]
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                what = f"tiled {name} {tiles.layout} dispatch={dispatch}"
+                require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                        f"{what}: output shape {tuple(got.shape)} or non-finite")
+                err = scaled_err(got, want)
+                require(err <= MODEL_TOL[name], f"{what}: err {err} over {MODEL_TOL[name]}")
+                emit(dict(phase="tiled", model=f"{name}_x2", layout=tiles.layout,
+                          kernel_dispatch=dispatch, vertices=padded.n_vertices,
+                          edges=padded.n_edges, tiles=tiles.n_tiles,
+                          s_max=tiles.s_max, e_max=tiles.e_max,
+                          first_s=secs[0], warm_s=secs[1], err_vs_oracle=err,
+                          tol=MODEL_TOL[name]))
+        del want, got
+    torch.cuda.empty_cache()
+
+
+def async_serving_phase(graphs, dev, *, width=WIDTH, max_batch=16,
+                        deadline_s=2.0, samples=4):
+    """``AsyncInferenceServer`` with 2-layer gcn and gat, warmed on the
+    class, under ``len(graphs)`` single-graph requests to each model."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compiler
+    from repro_torch.core.executor import run_reference
+    from repro_torch.gnn import models as M
+    from repro_torch.serve import AsyncInferenceServer
+
+    srv = AsyncInferenceServer(default_deadline_s=deadline_s, n_workers=2)
+    traces = {}
+    try:
+        for name in ("gcn", "gat"):
+            tr = traces[name] = M.trace_stacked(name, 2, width, width, width)
+            srv.register_model(
+                name, compiler.compile_gnn(tr), M.init_params(tr, seed=0),
+                max_batch=max_batch, warmup_graphs=[graphs[0]], device=dev)
+        t0 = time.perf_counter()
+        srv.start()
+        while not srv.warmup_done():
+            require(time.perf_counter() - t0 < 300, "async: warm-up over 300 s")
+            time.sleep(0.01)
+        warmup_s = time.perf_counter() - t0
+        require(srv.metrics.snapshot()["shed"].get("warmup-failed", 0) == 0,
+                "async: a warm-up batch failed")
+        builds = srv.cache.stats.compiles      # the shared cache's, both models
+        inputs = {n: [M.init_inputs(traces[n], g, seed=i) for i, g in enumerate(graphs)]
+                  for n in traces}
+        t0 = time.perf_counter()
+        tickets = {n: srv.submit_many(graphs, inputs[n], model=n, deadline_s=deadline_s)
+                   for n in traces}
+        outs = {n: [t.result(timeout=120) for t in ts] for n, ts in tickets.items()}
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        snap = srv.metrics.snapshot()
+    finally:
+        srv.close(timeout=120)
+    for n, ts in tickets.items():
+        require(all(t.ok for t in ts),
+                f"async {n}: {sum(not t.ok for t in ts)} requests shed: {snap['shed']}")
+    rebuilt = srv.cache.stats.compiles - builds
+    require(builds == len(traces) and rebuilt == 0,
+            f"async: {builds} builds in warm-up, {rebuilt} after it; expected "
+            f"{len(traces)} then 0")
+    errs = {}
+    for n in traces:
+        params = M.init_params(traces[n], seed=0)
+        errs[n] = []
+        for i in np.linspace(0, len(graphs) - 1, samples).astype(int):
+            want = run_reference(traces[n], graphs[i], inputs[n][i], params, device=dev)[0]
+            got = outs[n][i][0]
+            require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                    f"async {n}: request {i} output shape or non-finite")
+            errs[n].append(scaled_err(got, want))
+        require(max(errs[n]) <= MODEL_TOL[n],
+                f"async {n}: err {max(errs[n])} over {MODEL_TOL[n]}")
+    emit(dict(phase="async_serving", models=["gcn_x2", "gat_x2"],
+              requests_per_model=len(graphs), max_batch=max_batch,
+              deadline_s=deadline_s, warmup_s=warmup_s, serve_s=serve_s,
+              requests_per_s=2 * len(graphs) / serve_s,
+              builds_at_warmup=builds, builds_after_warmup=rebuilt,
+              cache=srv.cache.stats.as_dict(),
+              latency_p50_s=snap["latency_s"]["p50"],
+              latency_p99_s=snap["latency_s"]["p99"],
+              batch_fill=snap["batch_fill"], shed=snap["shed"],
+              queue_depth=snap["queue_depth"], queue_wait_s=snap["queue_wait_s"],
+              metrics=snap, err_vs_oracle=errs, tol={n: MODEL_TOL[n] for n in traces}))
+    torch.cuda.empty_cache()
+
+
+def autotune_phase(graphs, dev, *, width=WIDTH, max_evals=24, top=2, repeats=5):
+    """``tune_for_class`` for 2-layer gcn on the serving batch's merged
+    graph (simulator search, then each finalist timed on the card by CUDA
+    events), then the class served through the tuned route."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compiler
+    from repro_torch.core.executor import run_reference
+    from repro_torch.gnn import graphs as G
+    from repro_torch.gnn import models as M
+    from repro_torch.launch import autotune as AT
+    from repro_torch.serve import InferenceServer, quantize, size_class
+
+    tr = M.trace_stacked("gcn", 2, width, width, width)
+    c = compiler.compile_gnn(tr)
+    params = M.init_params(tr, seed=0)
+    batch = G.batch_graphs(graphs)
+    merged = batch.graph
+    class_key = (c.name, c.n_layers, size_class(graphs[0]),
+                 quantize(len(graphs), floor=1))
+    cache = AT.TuneCache()
+    t0 = time.perf_counter()
+    res = AT.tune_for_class(c, merged, class_key, cache=cache,
+                            inputs=M.init_inputs(tr, merged, seed=0), params=params,
+                            max_shards=1, max_evals=max_evals, top=top,
+                            repeats=repeats, device=dev)
+    tune_s = time.perf_counter() - t0
+    cfg = res.best.config
+    require(len(res.confirmed) == min(top, len(res.trials))
+            and all(t.wall_s and t.wall_s > 0 for t in res.confirmed),
+            "autotune: a finalist has no wall-clock time")
+    require(cache.get(AT.program_key(c, True), class_key) == cfg,
+            "autotune: the winner is not in the tune cache")
+
+    server = InferenceServer(c, params, tune_cache=cache, device=dev)
+    inputs = [M.init_inputs(tr, g, seed=i) for i, g in enumerate(graphs)]
+    lat = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = server.submit(graphs, inputs)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    tuned_key = ("tuned",) + cfg.key()
+    require(any(tuned_key in k for k in server.shapes._shapes),
+            f"autotune: no registration under {tuned_key}")
+    require(server.compile_count == 1 and server.cache_hits == 1,
+            f"autotune: builds={server.compile_count} hits={server.cache_hits}, "
+            "expected 1 build then a hit")
+    got = torch.cat([o[0] for o in outs])
+    merged_in = {k: np.concatenate([inp[k] for inp in inputs]) for k in inputs[0]}
+    want = run_reference(tr, merged, merged_in, params, device=dev)[0]
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"autotune: output shape {tuple(got.shape)} or non-finite")
+    err = scaled_err(got, want)
+    require(err <= MODEL_TOL["gcn"], f"autotune: err {err} over {MODEL_TOL['gcn']}")
+    emit(dict(phase="autotune", model="gcn_x2", vertices=merged.n_vertices,
+              edges=merged.n_edges, evals=res.n_evals, tune_s=tune_s,
+              wall_clock="cuda_events" if dev.type == "cuda" else "perf_counter",
+              repeats=repeats,
+              finalists=[dict(config=t.config.to_dict(), cycles=t.cycles,
+                              wall_s=t.wall_s) for t in res.confirmed],
+              best=cfg.to_dict(), tuned_key=list(tuned_key),
+              layout_signature=cache.entry(AT.program_key(c, True),
+                                           class_key)["layout_signature"],
+              serve_first_s=lat[0], serve_warm_s=lat[1],
+              builds=server.compile_count, hits=server.cache_hits,
+              err_vs_oracle=err, tol=MODEL_TOL["gcn"]))
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1018,6 +1228,30 @@ def main() -> int:
     for name, n in lm_launches.items():
         require(n > 0, f"kernel {name} was not launched on the LM serving path")
     launches.update(lm_launches)
+
+    # 8. the tiled interpreter on the serving batch, with launch counts
+    K.reset_launches()
+    tiled_phase(graphs, dev)
+    tiled_launches = dict(K.LAUNCHES)
+    emit(dict(phase="tiled_launches", **tiled_launches))
+    for name, n in tiled_launches.items():
+        require(n > 0, f"kernel {name} was not launched by run_tiled")
+
+    # 9. the async tier: 64 single-graph requests of the class, a model
+    more = [G.random_graph(2000, 16000, seed=i, model="powerlaw")
+            for i in range(len(graphs), 64)]
+    K.reset_launches()
+    async_serving_phase(graphs + more, dev)
+    emit(dict(phase="async_serving_launches", **K.LAUNCHES))
+    for name in ("tile_spmm", "segment_softmax"):
+        require(K.LAUNCHES[name] > 0, f"kernel {name} was not launched by the async tier")
+
+    # 10. the autotuner's wall-clock step and the tuned route
+    K.reset_launches()
+    autotune_phase(graphs, dev)
+    emit(dict(phase="autotune_launches", **K.LAUNCHES))
+    require(K.LAUNCHES["tile_spmm"] + K.LAUNCHES["tile_spmm_csr"] > 0,
+            "no SpMM kernel was launched by the tuned route")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,5 +1,6 @@
 """Tiled execution of a ScheduledProgram in PyTorch (port of
-``repro.core.pipeline``, single-device part).
+``repro.core.pipeline``: the single-device part, plus the numpy
+:func:`shard_layout_signature` the autotuner records).
 
 Like the reference engine, :class:`PipelinedRunner` is an *interpreter* of
 the :class:`~repro_torch.core.schedule.ScheduledProgram` — it derives no
@@ -44,7 +45,8 @@ from ..kernels.tile_spmm.kernel import (check_partition_major, partition_ptr,
                                         tile_flags)
 from ..kernels.tile_spmm.plan import coo_plan, csr_plan
 from .executor import _NEG_INF, apply_compute
-from .tiling import BucketedTileSet, TileSet
+from .tiling import (BucketedTileSet, ShardPlan, TileSet, exchange_sets,
+                     plan_shards)
 
 Array = torch.Tensor
 
@@ -82,6 +84,106 @@ def _check_reorder_mode(expected: str, reordering) -> None:
         raise ValueError(
             f"reordering mode {mode!r} does not match this runner's "
             f"compiled mode {expected!r}")
+
+
+# ---- kernel operands and dispatch of a tile batch ---------------------------
+# Both tiled engines call these: PipelinedRunner once per bind (per bucket),
+# executor.run_tiled once per run (the whole tile set).
+
+def tile_const(ts: TileSet, n_parts: int, device) -> Dict[str, Array]:
+    """Kernel metadata for one tile batch: int32 partition ids, their
+    runs ``part_ptr`` and FIRST/LAST flags, the partition presence
+    mask, and for CSR tiles the int32 row pointers and column indices.
+    ``part_ptr`` comes from the host array, so no launch syncs on it."""
+    check_partition_major(ts.part_id)
+    kc = dict(
+        part_id=torch.as_tensor(ts.part_id, dtype=torch.int32, device=device),
+        part_ptr=torch.as_tensor(partition_ptr(ts.part_id, n_parts),
+                                 device=device),
+        flags=torch.as_tensor(tile_flags(ts.part_id), device=device),
+        pmask=torch.as_tensor(np.isin(np.arange(n_parts), ts.part_id),
+                              device=device))
+    if ts.layout == "csr":
+        kc["row_ptr"] = torch.as_tensor(ts.row_ptr, dtype=torch.int32,
+                                        device=device)
+        kc["col"] = torch.as_tensor(ts.edge_src, dtype=torch.int32,
+                                    device=device)
+    return kc
+
+
+def softmax_const(ts: TileSet, n_parts: int, dmax: int,
+                  device) -> Dict[str, Array]:
+    """Kernel metadata for the segment-softmax batch: the tile constants,
+    the int32 edge lists and the batch's edge plan (built on the device,
+    with the plan's host syncs)."""
+    kc = tile_const(ts, n_parts, device)
+    kc["col"] = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=device)
+    if ts.layout == "csr":
+        kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"], n_parts,
+                              ts.edge_src.shape[1])
+    else:
+        kc["edge_dst"] = torch.as_tensor(ts.edge_dst, dtype=torch.int32,
+                                         device=device)
+        kc["n_edge"] = torch.as_tensor(ts.n_edge, dtype=torch.int32,
+                                       device=device)
+        kc["plan"] = coo_plan(kc["edge_dst"], kc["n_edge"], kc["part_id"],
+                              n_parts, dmax)
+    return kc
+
+
+def bucket_const(b: TileSet, ta: Dict[str, Array], with_adj: bool,
+                 n_parts: int, dmax: int, device) -> Dict[str, Array]:
+    """Per-bucket kernel metadata for the SpMM blocks: over CSR tiles the
+    CSR plan (built on the device), over COO tiles for pure SpMM the dense
+    adjacency (built on the device from the edge arrays ``ta``)."""
+    kc = tile_const(b, n_parts, device)
+    if b.layout == "csr":
+        kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"], n_parts,
+                              b.edge_src.shape[1])
+    elif with_adj:
+        ones = torch.ones(ta["edge_src"].shape, device=device)
+        kc["adj"] = tops.densify_edge_weights(
+            ones, ta["edge_dst"], ta["edge_src"], ta["n_edge"],
+            dmax=dmax, smax=b.s_max)
+    return kc
+
+
+def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
+                  ta: Dict[str, Array], h: Array, vals: Optional[Array],
+                  n_parts: int, dmax: int) -> Array:
+    """One kernel-tagged gather block over a tile batch: the source replica
+    ``h`` (T, S, F), per-edge ``vals`` (T, E) — scores for the segment
+    softmax, weights for weighted SpMM, ``None`` for pure SpMM — and the
+    batch's operands ``kc`` (:func:`softmax_const` / :func:`bucket_const`)
+    and int64 tile arrays ``ta``.  Returns (P, Dmax, F); partitions without
+    a tile in the batch are zero."""
+    if kernel == S.KERNEL_SEGMENT_SOFTMAX:
+        # the kernel walks the edge plan and gathers h[t, edge_src] itself:
+        # no dense score block, no (T, E, F) value block; a partition
+        # without a tile has only zero rows in the plan
+        if layout == "csr":
+            return tops.gat_aggregate_csr(kc["row_ptr"], kc["col"], vals, h,
+                                          kc["part_id"], kc["flags"],
+                                          n_parts=n_parts, plan=kc["plan"])
+        return tops.gat_aggregate(kc["edge_dst"], kc["n_edge"], kc["col"], vals,
+                                  h, kc["part_id"], kc["flags"], n_parts=n_parts,
+                                  dmax=dmax, plan=kc["plan"])
+    if vals is not None:                       # padded edge slots weigh 0
+        emask = (torch.arange(vals.shape[1], device=vals.device)[None, :]
+                 < ta["n_edge"][:, None])
+        vals = torch.where(emask, vals, 0.0)
+    if layout == "csr":
+        w = torch.ones(ta["edge_src"].shape, device=h.device) if vals is None else vals
+        return tops.spmm_csr(kc["row_ptr"], kc["col"], w, h, kc["part_id"],
+                             kc["flags"], n_parts=n_parts, plan=kc["plan"])
+    adj = kc["adj"] if vals is None else tops.densify_edge_weights(
+        vals, ta["edge_dst"], ta["edge_src"], ta["n_edge"], dmax=dmax,
+        smax=h.shape[-2])
+    out = tops.spmm(adj, h, kc["part_id"], kc["flags"], n_parts=n_parts,
+                    part_ptr=kc["part_ptr"])
+    # partitions with no tile in the batch: the COO kernel (like the
+    # reference's) leaves them unwritten
+    return torch.where(kc["pmask"][:, None, None], out, 0.0)
 
 
 # ---- scan-gather accumulator semantics -------------------------------------
@@ -179,62 +281,6 @@ class PipelinedRunner:
         its XLA compilations here)."""
         return 1
 
-    # ------------------------------------------------------------- constants
-    def _tile_const(self, ts: TileSet) -> Dict[str, Array]:
-        """Kernel metadata for one tile batch: int32 partition ids, their
-        runs ``part_ptr`` and FIRST/LAST flags, the partition presence
-        mask, and for CSR tiles the int32 row pointers and column indices.
-        ``part_ptr`` comes from the host array, so no launch syncs on it."""
-        check_partition_major(ts.part_id)
-        P, dev = self.tiles.n_dst_parts, self.device
-        kc = dict(
-            part_id=torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev),
-            part_ptr=torch.as_tensor(partition_ptr(ts.part_id, P), device=dev),
-            flags=torch.as_tensor(tile_flags(ts.part_id), device=dev),
-            pmask=torch.as_tensor(np.isin(np.arange(P), ts.part_id), device=dev))
-        if ts.layout == "csr":
-            kc["row_ptr"] = torch.as_tensor(ts.row_ptr, dtype=torch.int32,
-                                            device=dev)
-            kc["col"] = torch.as_tensor(ts.edge_src, dtype=torch.int32,
-                                        device=dev)
-        return kc
-
-    def _softmax_const(self, ts: TileSet) -> Dict[str, Array]:
-        """Kernel metadata for the segment-softmax batch: the tile constants,
-        the int32 edge lists and the batch's edge plan (built on the device,
-        once per bind, with the plan's host syncs)."""
-        kc = self._tile_const(ts)
-        P, dev = self.tiles.n_dst_parts, self.device
-        kc["col"] = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
-        if ts.layout == "csr":
-            kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"], P,
-                                  ts.edge_src.shape[1])
-        else:
-            kc["edge_dst"] = torch.as_tensor(ts.edge_dst, dtype=torch.int32,
-                                             device=dev)
-            kc["n_edge"] = torch.as_tensor(ts.n_edge, dtype=torch.int32,
-                                           device=dev)
-            kc["plan"] = coo_plan(kc["edge_dst"], kc["n_edge"], kc["part_id"],
-                                  P, self.dmax)
-        return kc
-
-    def _bucket_const(self, b: TileSet, ta: Dict[str, Array],
-                      with_adj: bool) -> Dict[str, Array]:
-        """Per-bucket kernel metadata for the SpMM blocks: over CSR tiles
-        the CSR plan (built on the device, once per bind), over COO tiles
-        for pure SpMM the dense adjacency (built on the device from the
-        edge arrays)."""
-        kc = self._tile_const(b)
-        if b.layout == "csr":
-            kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"],
-                                  self.tiles.n_dst_parts, b.edge_src.shape[1])
-        elif with_adj:
-            ones = torch.ones(ta["edge_src"].shape, device=self.device)
-            kc["adj"] = tops.densify_edge_weights(
-                ones, ta["edge_dst"], ta["edge_src"], ta["n_edge"],
-                dmax=self.dmax, smax=b.s_max)
-        return kc
-
     # ------------------------------------------------------------------ bind
     def bind(self, tiles, reordering=None) -> Tuple:
         """Device operands (tile arrays + kernel constants + permutation) for
@@ -250,7 +296,8 @@ class PipelinedRunner:
             list(tiles.buckets) if isinstance(tiles, BucketedTileSet) else [tiles])
         tas = tuple(_tile_arrays(b, self.device) for b in buckets)
         if self._kernels & {S.KERNEL_SPMM, S.KERNEL_SPMM_WEIGHTED}:
-            kcs = tuple(self._bucket_const(b, ta, S.KERNEL_SPMM in self._kernels)
+            P, with_adj = self.tiles.n_dst_parts, S.KERNEL_SPMM in self._kernels
+            kcs = tuple(bucket_const(b, ta, with_adj, P, self.dmax, self.device)
                         for b, ta in zip(buckets, tas))
         else:
             kcs = tuple({} for _ in buckets)
@@ -260,7 +307,8 @@ class PipelinedRunner:
         if S.KERNEL_SEGMENT_SOFTMAX in self._kernels:
             st = tiles.source if isinstance(tiles, BucketedTileSet) else tiles
             ta0 = _tile_arrays(st, self.device)
-            kc0 = self._softmax_const(st)
+            kc0 = softmax_const(st, self.tiles.n_dst_parts, self.dmax,
+                                self.device)
         return (tas, kcs, ta0, kc0, _perm_operand(reordering, self.device))
 
     # ------------------------------------------------------------------ run
@@ -379,13 +427,10 @@ class PipelinedRunner:
         def src_value(senv, nid, rows):
             return senv[nid] if nid in senv else vstore[nid][rows]
 
-        def edge_weights(g, xs, senv):
-            """(T, E) per-edge weights of a weighted gather, padded slots 0."""
+        def edge_values(g, vid, xs, senv):
+            """(T, E) per-edge values ``vid`` of a kernel gather."""
             _, elookup = edge_env(g.edge_nodes, xs, senv)
-            w = elookup(g.weight_id)[..., 0]
-            emask = (torch.arange(w.shape[1], device=dev)[None, :]
-                     < xs["n_edge"][:, None])
-            return torch.where(emask, w, 0.0)
+            return elookup(vid)[..., 0].contiguous()
 
         def unpad(val):
             """(P, Dmax, d) partition-padded -> (V, d) vertex store."""
@@ -409,27 +454,14 @@ class PipelinedRunner:
             # ---- kernel-dispatched gather blocks
             for g in phase.kernel_gathers():
                 if g.kernel == S.KERNEL_SEGMENT_SOFTMAX:
-                    # per-edge scores and the source replica h (T, S, F) feed
-                    # the kernel, which gathers h[t, edge_src] itself: no
-                    # dense score block, no (T, E, F) value block
+                    # per-edge scores and the source replica h (T, S, F) of
+                    # the unbucketed batch
                     xs0 = with_dst(ta0)
                     senv = eval_vertex(xs0["src_ids"], phase.src.nodes)
-                    _, elookup = edge_env(g.edge_nodes, xs0, senv)
                     h = src_value(senv, g.src_value_id, xs0["src_ids"]).contiguous()
-                    scores = elookup(g.score_id)[..., 0].contiguous()  # (T, E)
-                    if self.layout == "csr":
-                        out = tops.gat_aggregate_csr(
-                            kc0["row_ptr"], kc0["col"], scores, h,
-                            kc0["part_id"], kc0["flags"], n_parts=P,
-                            plan=kc0["plan"])
-                    else:
-                        out = tops.gat_aggregate(
-                            kc0["edge_dst"], kc0["n_edge"], kc0["col"], scores,
-                            h, kc0["part_id"], kc0["flags"], n_parts=P,
-                            dmax=dmax, plan=kc0["plan"])
-                    # a partition without a tile has only zero rows in the
-                    # plan: no mask needed
-                    publish_gather(g.acc.recv_id, out)
+                    scores = edge_values(g, g.score_id, xs0, senv)
+                    publish_gather(g.acc.recv_id, kernel_gather(
+                        g.kernel, self.layout, kc0, ta0, h, scores, P, dmax))
                     continue
 
                 # SpMM variants: one kernel call per size bucket, partition
@@ -439,26 +471,10 @@ class PipelinedRunner:
                     senv = eval_vertex(ta["src_ids"], phase.src.nodes)
                     xsrc = src_value(senv, g.src_value_id,
                                      ta["src_ids"]).contiguous()
-                    if g.kernel == S.KERNEL_SPMM:
-                        w = None
-                    else:
-                        w = edge_weights(g, with_dst(ta), senv)
-                    if self.layout == "csr":
-                        if w is None:
-                            w = torch.ones(ta["edge_src"].shape, device=dev)
-                        out = tops.spmm_csr(kc["row_ptr"], kc["col"],
-                                            w.contiguous(), xsrc, kc["part_id"],
-                                            kc["flags"], n_parts=P,
-                                            plan=kc["plan"])
-                    else:
-                        adj = kc["adj"] if w is None else tops.densify_edge_weights(
-                            w, ta["edge_dst"], ta["edge_src"], ta["n_edge"],
-                            dmax=dmax, smax=ta["src_ids"].shape[1])
-                        out = tops.spmm(adj, xsrc, kc["part_id"], kc["flags"],
-                                        n_parts=P, part_ptr=kc["part_ptr"])
-                    # partitions with no tile in this bucket: the reference
-                    # kernel leaves them unwritten, so the runner masks them
-                    total += torch.where(kc["pmask"][:, None, None], out, 0.0)
+                    w = (None if g.kernel == S.KERNEL_SPMM
+                         else edge_values(g, g.weight_id, with_dst(ta), senv))
+                    total += kernel_gather(g.kernel, self.layout, kc, ta, xsrc,
+                                           w, P, dmax)
                 publish_gather(g.acc.recv_id, total)
 
             # ---- scan-tagged gathers: one batched scatter per bucket into
@@ -495,3 +511,80 @@ def run_pipelined(compiled: C.CompiledGNN, graph: Graph, tiles,
     return PipelinedRunner(compiled, graph, tiles,
                            kernel_dispatch=kernel_dispatch,
                            reordering=reordering, device=device)(inputs, params)
+
+
+# ---------------------------------------------------------------------------
+# the sharded layout's shape identity (numpy); the autotuner records it.
+# ShardedRunner itself is not ported yet (ROADMAP A.7).
+# ---------------------------------------------------------------------------
+
+def _quantize_cap(n: int) -> int:
+    """Round a per-shard tile capacity up to the next power of two (serving:
+    small per-request variance in shard tile counts must map onto one
+    compiled shape)."""
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()
+
+
+def _shard_tile_counts(tiles, plan: ShardPlan) -> List[List[int]]:
+    """Per bucket, per shard: number of real (n_edge > 0) tiles assigned."""
+    buckets: List[TileSet] = (list(tiles.buckets)
+                              if isinstance(tiles, BucketedTileSet) else [tiles])
+    out = []
+    for b in buckets:
+        shard = plan.shard_of_part[b.part_id]
+        real = b.n_edge > 0
+        out.append([int(np.sum(real & (shard == k)))
+                    for k in range(plan.n_shards)])
+    return out
+
+
+def _source_tileset(tiles) -> TileSet:
+    return tiles.source if isinstance(tiles, BucketedTileSet) else tiles
+
+
+def _shard_real_counts(ts: TileSet, plan: ShardPlan) -> List[int]:
+    shard = plan.shard_of_part[ts.part_id]
+    real = ts.n_edge > 0
+    return [int(np.sum(real & (shard == k))) for k in range(plan.n_shards)]
+
+
+def _exchange_cap(tiles, plan: ShardPlan, quantize_tile_cap: bool) -> int:
+    """Static send-buffer capacity of the restricted boundary exchange:
+    the largest per-shard send set (rows a shard owns that remote shards'
+    gather blocks read), power-of-two quantized under serving's cap
+    quantization so small per-request variance shares one compiled shape."""
+    cap = max(1, exchange_sets(tiles, plan).max_send)
+    return _quantize_cap(cap) if quantize_tile_cap else cap
+
+
+def shard_layout_signature(tiles, n_devices: int, mode: str = "cost",
+                           quantize_tile_cap: bool = False,
+                           kernel_dispatch: bool = False,
+                           kernels: Tuple[str, ...] = (),
+                           model_axis: int = 1) -> Tuple:
+    """Shape identity of the sharded execution layout — everything a
+    :class:`ShardedRunner` compilation depends on beyond the program and
+    tile-set signatures.  Cheap (pure numpy); the serving engine calls it
+    per request to key the program cache, so two requests share a warm
+    sharded runner iff their shard layouts realize identical shapes.
+
+    ``kernel_dispatch`` (and, when it is on, the program's kernel tags) is
+    part of the identity: a scan-scheduled compilation must never alias a
+    kernel-dispatched one, and the segment-softmax kernel adds a per-shard
+    capacity for the unbucketed tile batch that scan programs don't have.
+    Multi-shard layouts append the restricted-exchange send capacity
+    (:func:`_exchange_cap`); ``model_axis`` names the 2-D mesh's feature
+    axis width — a different feature split never aliases."""
+    plan = plan_shards(tiles, n_devices, mode=mode)
+    caps = []
+    for counts in _shard_tile_counts(tiles, plan):
+        cap = max(1, max(counts))
+        caps.append(_quantize_cap(cap) if quantize_tile_cap else cap)
+    if kernel_dispatch and S.KERNEL_SEGMENT_SOFTMAX in kernels:
+        cap0 = max(1, max(_shard_real_counts(_source_tileset(tiles), plan)))
+        caps.append(_quantize_cap(cap0) if quantize_tile_cap else cap0)
+    if n_devices > 1:
+        caps.append(_exchange_cap(tiles, plan, quantize_tile_cap))
+    return ("shardlayout", n_devices, mode, int(model_axis),
+            plan.n_local_parts, tuple(caps), bool(kernel_dispatch))

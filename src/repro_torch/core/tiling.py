@@ -26,6 +26,7 @@ edge-slot waste drops by the bucket-size ratio.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import List, Optional, Tuple
 
@@ -409,6 +410,26 @@ def bucket_tiles(tiles: TileSet, n_buckets: int = 4,
     return BucketedTileSet(buckets=buckets, tile_index=index, source=tiles)
 
 
+def quantize_buckets(bt: BucketedTileSet,
+                     pad_multiple: int = 8) -> BucketedTileSet:
+    """Snap each bucket's column maxima (s_max, e_max) up to powers of two.
+
+    Bucket row counts are already deterministic per tile count (see
+    :func:`bucket_tiles`), so after this pass the whole bucketed shape
+    signature is a step function of the size class — structurally-similar
+    serving requests that tile and bucket slightly differently still land
+    on one compiled sharded program.  Tile order and ``tile_index`` are
+    unchanged (only columns grow)."""
+    def q(n: int) -> int:
+        n = max(int(n), pad_multiple)
+        return 1 << (n - 1).bit_length()
+
+    buckets = [pad_tileset(b, b.n_tiles, q(b.s_max), q(b.e_max))
+               for b in bt.buckets]
+    return BucketedTileSet(buckets=buckets, tile_index=list(bt.tile_index),
+                           source=bt.source)
+
+
 def pad_tileset(tiles: TileSet, n_tiles: int, s_max: int, e_max: int) -> TileSet:
     """Pad a (partition-major) tile set to ``(n_tiles, s_max, e_max)`` with
     zero-edge filler tiles, so structurally-similar graphs snap onto one
@@ -456,6 +477,322 @@ def pad_tileset(tiles: TileSet, n_tiles: int, s_max: int, e_max: int) -> TileSet
         layout=tiles.layout, row_ptr=row_ptr)
 
 
+@dataclasses.dataclass
+class ShardPlan:
+    """Assignment of destination partitions to mesh shards (multi-device /
+    multi-chip execution).
+
+    Because a tile is owned by exactly one destination partition, assigning
+    whole partitions to shards keeps every gather accumulator device-local —
+    the only cross-shard dataflow is the layer-boundary read of *drained*
+    source values (one all-gather in the executed runner, one exchange step
+    in the simulator's multi-chip cost model).
+
+    ``parts_of_shard[k]`` lists the global partition ids shard ``k`` owns in
+    ascending order; shards are padded to a common ``n_local_parts`` slot
+    count (ragged partition counts — ``P`` not divisible by the mesh — leave
+    trailing invalid slots on the lighter shards).
+    """
+
+    n_shards: int
+    parts_of_shard: List[np.ndarray]   # per shard: global partition ids, asc
+    shard_of_part: np.ndarray          # (P,) int32
+    local_slot_of_part: np.ndarray     # (P,) int32 — slot within owning shard
+    part_cost: np.ndarray              # (P,) int64 — padded edge-slot cost
+    mode: str
+    part_adj: Optional[np.ndarray] = None  # (P, P) int64 directed read counts
+
+    @property
+    def n_parts(self) -> int:
+        return int(self.shard_of_part.shape[0])
+
+    @property
+    def n_local_parts(self) -> int:
+        """Local partition slots per shard (max over shards, >= 1)."""
+        return max(1, max(len(p) for p in self.parts_of_shard))
+
+    def shard_costs(self) -> np.ndarray:
+        """(K,) summed padded-edge cost per shard (balance diagnostic)."""
+        return np.array([int(self.part_cost[p].sum())
+                         for p in self.parts_of_shard], np.int64)
+
+    def edge_cut(self) -> int:
+        """Cross-shard source-read slots: the sum of partition-adjacency
+        weights ``w[p, q]`` over pairs assigned to different shards.  This is
+        exactly the row traffic a neighbor-restricted boundary exchange must
+        ship, so it is the min-cut planner's objective."""
+        if self.part_adj is None:
+            raise ValueError(
+                "plan has no partition adjacency; build it via plan_shards()")
+        cross = self.shard_of_part[:, None] != self.shard_of_part[None, :]
+        return int(self.part_adj[cross].sum())
+
+    def assignment(self) -> Tuple[Tuple[int, ...], ...]:
+        """Exact per-shard partition-id tuples (tests / debugging)."""
+        return tuple(tuple(int(i) for i in p) for p in self.parts_of_shard)
+
+    def signature(self) -> Tuple:
+        """Stable assignment identity: a short digest of the exact
+        assignment rather than the O(P) id lists themselves, so cache keys
+        and diagnostics stay small on large graphs.  Use
+        :meth:`assignment` when the exact lists are needed."""
+        digest = hashlib.sha256(
+            repr((self.mode, self.n_shards, self.assignment())).encode()
+        ).hexdigest()[:16]
+        return ("shardplan", self.mode, self.n_shards, self.n_local_parts,
+                digest)
+
+
+def partition_costs(tiles) -> np.ndarray:
+    """(P,) padded edge-slot cost per destination partition — what a
+    static-shape executor pays for that partition's tiles.  Vectorized:
+    this runs per request on the sharded serving hot path."""
+    part_id = np.asarray(tiles.part_id)
+    if isinstance(tiles, BucketedTileSet):
+        pad_e = np.asarray(tiles._pad_e, np.int64)
+    else:
+        pad_e = np.full(part_id.shape, tiles.e_max, np.int64)
+    cost = np.zeros(tiles.n_dst_parts, np.int64)
+    np.add.at(cost, part_id, pad_e)
+    return cost
+
+
+def partition_adjacency(tiles) -> np.ndarray:
+    """(P, P) directed read-count matrix over destination partitions.
+
+    ``w[p, q]`` counts the real source-vertex slots that tiles of dst
+    partition ``p`` read from vertices *owned* by partition ``q`` (ownership
+    by the destination-partition ranges ``part_start``/``part_size``).  Built
+    vectorized from the padded tile batch — it runs per request on the
+    sharded serving hot path, like :func:`partition_costs`.
+    """
+    P = tiles.n_dst_parts
+    part_start = np.asarray(tiles.part_start)
+    w = np.zeros((P, P), np.int64)
+
+    def accumulate(ts: TileSet) -> None:
+        if ts.n_tiles == 0 or ts.s_max == 0:
+            return
+        src_ids = np.asarray(ts.src_ids)
+        src_part = np.searchsorted(part_start, src_ids, side="right") - 1
+        valid = np.arange(ts.s_max)[None, :] < np.asarray(ts.n_src)[:, None]
+        dst_part = np.broadcast_to(
+            np.asarray(ts.part_id)[:, None], src_part.shape)
+        np.add.at(w, (dst_part[valid], src_part[valid]), 1)
+
+    if isinstance(tiles, BucketedTileSet):
+        for b in tiles.buckets:
+            accumulate(b)
+    else:
+        accumulate(tiles)
+    return w
+
+
+def _lpt_assign(cost: np.ndarray, n_shards: int) -> List[List[int]]:
+    """Deterministic LPT greedy: heaviest partition to least-loaded shard."""
+    order = np.argsort(-cost, kind="stable")          # heaviest first, ties by id
+    loads = np.zeros(n_shards, np.int64)
+    assign: List[List[int]] = [[] for _ in range(n_shards)]
+    for p in order:
+        k = int(np.argmin(loads))                     # least-loaded, ties low id
+        assign[k].append(int(p))
+        loads[k] += cost[p]
+    return assign
+
+
+def _mincut_refine(assign: List[List[int]], cost: np.ndarray,
+                   adj: np.ndarray, n_shards: int, balance_tol: float,
+                   max_moves: Optional[int] = None) -> List[List[int]]:
+    """Deterministic KL-style greedy refinement of a seed assignment.
+
+    Each step applies the best strictly-positive cut-gain *move* (partition
+    to another shard) or *swap* (exchange two partitions between shards —
+    the step that still works when loads are tight, since it roughly
+    preserves them), subject to a padded-cost cap of ``max(seed max load,
+    ceil(balance_tol x mean load))``.  The symmetric edge cut strictly
+    decreases every step, so the result's :meth:`ShardPlan.edge_cut` never
+    exceeds the seed's and termination is guaranteed.
+    """
+    P = cost.shape[0]
+    K = n_shards
+    sym = (adj + adj.T).astype(np.float64)
+    np.fill_diagonal(sym, 0.0)
+    shard_of = np.zeros(P, np.int64)
+    loads = np.zeros(K, np.int64)
+    for k, ps in enumerate(assign):
+        ids = np.asarray(ps, np.int64)
+        shard_of[ids] = k
+        loads[k] = int(cost[ids].sum()) if len(ids) else 0
+    mean = cost.sum() / max(1, K)
+    cap = max(int(loads.max()), int(math.ceil(balance_tol * mean)))
+    if max_moves is None:
+        max_moves = 4 * P
+    ar = np.arange(P)
+    for _ in range(max_moves):
+        onehot = np.zeros((P, K))
+        onehot[ar, shard_of] = 1.0
+        conn = sym @ onehot                       # conn[p, k]
+        own = conn[ar, shard_of]                  # conn to own shard
+        # single moves: gain of sending p to shard k
+        mgain = conn - own[:, None]
+        mfeas = loads[None, :] + cost[:, None] <= cap
+        mfeas[ar, shard_of] = False
+        mgain = np.where(mfeas, mgain, -np.inf)
+        mi = int(np.argmax(mgain))                # ties -> lowest (p, k)
+        mp, mk = divmod(mi, K)
+        # swaps: exchange p (shard A) and q (shard B); after the swap the
+        # pair is still split, hence the -2*sym[p, q] correction
+        c_pb = conn[:, shard_of]                  # c_pb[p, q] = conn[p, B_q]
+        sgain = c_pb - own[:, None] + c_pb.T - own[None, :] - 2.0 * sym
+        load_of = loads[shard_of]
+        new_a = load_of[:, None] - cost[:, None] + cost[None, :]
+        new_b = load_of[None, :] + cost[:, None] - cost[None, :]
+        sfeas = ((shard_of[:, None] != shard_of[None, :])
+                 & (new_a <= cap) & (new_b <= cap))
+        sgain = np.where(sfeas, sgain, -np.inf)
+        si = int(np.argmax(sgain))
+        sp_, sq = divmod(si, P)
+        best_m = mgain[mp, mk]
+        best_s = sgain[sp_, sq]
+        if max(best_m, best_s) <= 0:
+            break
+        if best_m >= best_s:
+            loads[shard_of[mp]] -= cost[mp]
+            loads[mk] += cost[mp]
+            shard_of[mp] = mk
+        else:
+            a, b = int(shard_of[sp_]), int(shard_of[sq])
+            loads[a] += cost[sq] - cost[sp_]
+            loads[b] += cost[sp_] - cost[sq]
+            shard_of[sp_], shard_of[sq] = b, a
+    out: List[List[int]] = [[] for _ in range(K)]
+    for p in range(P):
+        out[int(shard_of[p])].append(p)
+    return out
+
+
+def plan_shards(tiles, n_shards: int, mode: str = "cost", *,
+                balance_tol: float = 1.05) -> ShardPlan:
+    """Assign destination partitions to ``n_shards`` mesh shards.
+
+    ``mode="cost"`` runs deterministic LPT (largest processing time) greedy
+    balancing on the padded edge-slot cost — best balance for a fixed tile
+    set.  ``mode="mincut"`` seeds with the LPT assignment and then runs a
+    deterministic greedy refinement over the partition-adjacency graph
+    (:func:`partition_adjacency`) that minimizes cross-shard source reads
+    subject to a padded-cost cap of ``max(LPT max load, balance_tol x mean)``
+    — by construction its :meth:`ShardPlan.edge_cut` never exceeds LPT's.
+    ``mode="contiguous"`` splits the partition range evenly — a pure
+    function of (P, K), which the serving layer needs so structurally-equal
+    requests land on one shard layout regardless of edge distribution.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    P = tiles.n_dst_parts
+    cost = partition_costs(tiles)
+    adj = partition_adjacency(tiles)
+    if mode == "contiguous":
+        bounds = _even_bounds(P, n_shards)
+        parts = [np.arange(bounds[k], bounds[k + 1], dtype=np.int64)
+                 for k in range(n_shards)]
+    elif mode == "cost":
+        parts = [np.sort(np.asarray(a, np.int64))
+                 for a in _lpt_assign(cost, n_shards)]
+    elif mode == "mincut":
+        assign = _mincut_refine(_lpt_assign(cost, n_shards), cost, adj,
+                                n_shards, balance_tol)
+        parts = [np.sort(np.asarray(a, np.int64)) for a in assign]
+    else:
+        raise ValueError(f"unknown shard mode {mode!r}")
+
+    shard_of = np.zeros(P, np.int32)
+    slot_of = np.zeros(P, np.int32)
+    for k, ps in enumerate(parts):
+        shard_of[ps] = k
+        slot_of[ps] = np.arange(len(ps), dtype=np.int32)
+    return ShardPlan(n_shards=n_shards, parts_of_shard=parts,
+                     shard_of_part=shard_of, local_slot_of_part=slot_of,
+                     part_cost=cost, mode=mode, part_adj=adj)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangePlan:
+    """Static neighbor-restricted boundary-exchange sets for a
+    :class:`ShardPlan`.
+
+    Derived once per (tile set, plan): which vertex rows each shard's tiles
+    *read* as gather sources, which rows each shard therefore has to *send*
+    (rows it owns that at least one remote shard reads), and the (K, K)
+    pairwise cut-row counts the simulator's restricted-exchange cost model
+    consumes.  Rows a shard owns are never in its own receive set — the
+    destination-side (``recvDst``) reads are device-local by ShardPlan
+    construction, which :func:`repro.core.analysis.hazards.verify_exchange`
+    proves statically.
+    """
+
+    n_shards: int
+    n_vertices: int
+    read_rows: np.ndarray           # (K, V) bool — rows shard k reads as src
+    owner_of_row: np.ndarray        # (V,) int32 — owning shard per vertex row
+    send_rows: Tuple[np.ndarray, ...]  # per shard: owned rows remotes read, asc
+    pair_rows: np.ndarray           # (K, K) int64 — rows j reads from owner k
+
+    @property
+    def cut_rows(self) -> int:
+        """Total rows shipped per boundary by the restricted exchange."""
+        off = ~np.eye(self.n_shards, dtype=bool)
+        return int(self.pair_rows[off].sum())
+
+    @property
+    def max_send(self) -> int:
+        """Largest per-shard send set (static send-buffer capacity)."""
+        return max((len(r) for r in self.send_rows), default=0)
+
+
+def exchange_sets(tiles, plan: ShardPlan) -> ExchangePlan:
+    """Derive the static send/recv row sets of the restricted exchange.
+
+    A row must be sent by its owning shard iff any *other* shard's tiles
+    read it as a gather source.  Reads are taken from the real (unmasked)
+    ``src_ids`` slots of every tile, ownership from the destination
+    partition ranges — both pure numpy, run per request on the serving path.
+    """
+    V = tiles.n_vertices
+    K = plan.n_shards
+    part_start = np.asarray(tiles.part_start)
+    reads = np.zeros((K, V), bool)
+
+    def accumulate(ts: TileSet) -> None:
+        if ts.n_tiles == 0 or ts.s_max == 0:
+            return
+        shard = plan.shard_of_part[np.asarray(ts.part_id)]
+        valid = np.arange(ts.s_max)[None, :] < np.asarray(ts.n_src)[:, None]
+        rows = np.broadcast_to(shard[:, None], valid.shape)
+        reads[rows[valid], np.asarray(ts.src_ids)[valid]] = True
+
+    if isinstance(tiles, BucketedTileSet):
+        for b in tiles.buckets:
+            accumulate(b)
+    else:
+        accumulate(tiles)
+
+    row_part = np.searchsorted(part_start, np.arange(V), side="right") - 1
+    owner = plan.shard_of_part[row_part].astype(np.int32)
+    n_readers = reads.sum(axis=0)
+    send_rows = []
+    pair = np.zeros((K, K), np.int64)
+    for k in range(K):
+        owned = owner == k
+        read_elsewhere = (n_readers - reads[k].astype(np.int64)) > 0
+        send_rows.append(np.nonzero(owned & read_elsewhere)[0].astype(np.int64))
+        for j in range(K):
+            if j != k:
+                pair[k, j] = int((owned & reads[j]).sum())
+    return ExchangePlan(n_shards=K, n_vertices=V, read_rows=reads,
+                        owner_of_row=owner, send_rows=tuple(send_rows),
+                        pair_rows=pair)
+
+
 def build_tiles(graph: Graph, n_dst_parts: int, n_src_parts: int, *,
                 sparse: bool = True, pad_multiple: int = 8,
                 reorder: Optional[str] = None, n_buckets: Optional[int] = None,
@@ -491,3 +828,14 @@ def build_tiles(graph: Graph, n_dst_parts: int, n_src_parts: int, *,
         tiles = bucket_tiles(tiles, n_buckets, pad_multiple=pad_multiple)
     return tiles, ro
 
+
+def choose_grid(n_vertices: int, dim: int, vmem_budget_bytes: int = 8 << 20,
+                dtype_bytes: int = 4) -> Tuple[int, int]:
+    """Pick (n_dst_parts, n_src_parts) so a tile's working set — one source
+    block + one destination block of embeddings — fits the on-chip budget
+    (paper §5.1; adapted from the 21 MB eDRAM UEM to a VMEM budget)."""
+    row_bytes = dim * dtype_bytes
+    # budget split: half for sources, half for destination accumulators
+    rows_per_block = max(64, vmem_budget_bytes // (2 * row_bytes))
+    parts = max(1, int(math.ceil(n_vertices / rows_per_block)))
+    return parts, parts

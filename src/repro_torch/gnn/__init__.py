@@ -1,2 +1,2 @@
 """Graphs and the paper's GNN models (numpy copies of ``repro.gnn``)."""
-from . import graphs, models  # noqa: F401
+from . import graphs, models, frontend  # noqa: F401

@@ -52,8 +52,16 @@ class InferenceServer:
     (numpy or tensors) are the default weights for every request.  Requests
     run on ``device`` (``cuda`` unless named).
 
-    Sharded serving (``shard_devices > 1``) and autotuned routes
-    (``tune_cache``) are not ported yet and raise ``NotImplementedError``.
+    ``tune_cache`` (a :class:`~repro_torch.launch.autotune.TuneCache`)
+    routes size classes with a tuned entry onto the tuned tile config: the
+    tuned grid, vertex reorder and edge layout replace the
+    :func:`~repro_torch.serve.signature.serving_grid` defaults, and the
+    canonical tile batch is size-bucketed with registry-managed per-bucket
+    caps.  Tuned and default registrations and cache keys never alias:
+    both carry the tuned config key.
+
+    Sharded serving (``shard_devices > 1``) is not ported yet and raises
+    ``NotImplementedError``.
     """
 
     def __init__(self, model: Union[str, C.CompiledGNN],
@@ -82,8 +90,9 @@ class InferenceServer:
                 default serving grid.
             shard_devices: sharded serving; only ``None`` or 1 (ROADMAP
                 A.7 ports the sharded route).
-            tune_cache: autotuned routes; must be ``None`` (ROADMAP A.6
-                ports the tuner).
+            tune_cache: optional
+                :class:`~repro_torch.launch.autotune.TuneCache` routing
+                tuned classes onto tuned tile configs.
             cache: a shared :class:`ProgramCache`; defaults to a private
                 cache of ``cache_capacity``.
             shapes: a shared :class:`ShapeRegistry`; defaults to private.
@@ -93,8 +102,7 @@ class InferenceServer:
 
         Raises:
             ValueError: on a layer-count conflict or ``shard_devices < 1``.
-            NotImplementedError: for ``shard_devices > 1`` or a
-                ``tune_cache``.
+            NotImplementedError: for ``shard_devices > 1``.
             RuntimeError: when ``cuda`` is asked for and no card is visible.
         """
         if shard_devices is not None and shard_devices < 1:
@@ -103,10 +111,6 @@ class InferenceServer:
             raise NotImplementedError(
                 "sharded serving (shard_devices > 1) is not ported yet: "
                 "ROADMAP A.7 (sharded execution)")
-        if tune_cache is not None:
-            raise NotImplementedError(
-                "tuned routes (tune_cache) are not ported yet: ROADMAP A.6 "
-                "(autotune wall-clock)")
         self.device = resolve(device)
         if isinstance(model, str):
             self.compiled = C.compile_gnn(
@@ -122,6 +126,7 @@ class InferenceServer:
             params, self.device, self.compiled.trace)
         self.kernel_dispatch = kernel_dispatch
         self.target_part = target_part
+        self.tune_cache = tune_cache
         self.sp = self.compiled.schedule(self.kernel_dispatch)
         self.cache = cache if cache is not None \
             else ProgramCache(capacity=cache_capacity)
@@ -199,8 +204,25 @@ class InferenceServer:
         # registrations of different programs never alias
         class_key = (self.compiled.name, self.compiled.n_layers,
                      size_class(graphs[0]), quantize(len(graphs), floor=1))
-        merged_graph, tiles, E_pad, ro = self.shapes.canonical(
-            class_key, batch.graph)
+        tuned = None
+        if self.tune_cache is not None:
+            from ..launch.autotune import program_key
+            tuned = self.tune_cache.get(
+                program_key(self.compiled, self.kernel_dispatch), class_key)
+        if tuned is not None:
+            # tuned route: tuned grid + reorder + edge layout + size-bucketed
+            # tile batch; the registration key carries the config so default
+            # and tuned canonical shapes of one class never alias
+            tuned_key = ("tuned",) + tuned.key()
+            merged_graph, tiles, E_pad, ro = self.shapes.canonical(
+                class_key + (tuned_key,), batch.graph,
+                grid=(tuned.n_dst_parts, tuned.n_src_parts),
+                reorder=tuned.reorder, layout=tuned.layout,
+                n_buckets=tuned.n_buckets)
+        else:
+            tuned_key = ()
+            merged_graph, tiles, E_pad, ro = self.shapes.canonical(
+                class_key, batch.graph)
         V_pad = merged_graph.n_vertices
 
         merged_inputs: Dict[str, torch.Tensor] = {}
@@ -212,7 +234,8 @@ class InferenceServer:
                     self.device)
 
         key = structure_signature(self.compiled, tiles, E_pad,
-                                  self.kernel_dispatch, reorder=ro.mode)
+                                  self.kernel_dispatch,
+                                  reorder=ro.mode) + (tuned_key,)
         runner = self.cache.get_or_build(
             key, lambda: PipelinedRunner(self.compiled, ro.graph, tiles,
                                          kernel_dispatch=self.kernel_dispatch,

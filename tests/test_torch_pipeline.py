@@ -33,9 +33,9 @@ def _tol(name):
     return 1e-4 if name == "gat" else 5e-4
 
 
-def _err(name, got, want):
+def _err(name, got, want, scaled=False):
     err = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
-    if name == "sage":
+    if name == "sage" or scaled:
         err /= max(1.0, float(np.max(np.abs(want))))
     return err
 
@@ -55,7 +55,7 @@ def _setup(name, n_layers, V=64, E=260):
 
 @pytest.mark.parametrize("kernel_dispatch", [True, False], ids=["kernels", "scan"])
 @pytest.mark.parametrize("layout", ["coo", "csr"])
-@pytest.mark.parametrize("n_layers", [1, 2])
+@pytest.mark.parametrize("n_layers", [1, 2, 3])
 @pytest.mark.parametrize("name", MODELS)
 def test_pipelined_matches_reference_engines(name, n_layers, layout,
                                              kernel_dispatch):
@@ -74,11 +74,61 @@ def test_pipelined_matches_reference_engines(name, n_layers, layout,
     assert sum(tkernel.LAUNCHES.values()) == 0      # CPU: plain versions only
     assert len(tout) == 1 and tuple(tout[0].shape) == oracle.shape
     got = tout[0].numpy()
-    assert _err(name, got, oracle) < _tol(name)
-    assert _err(name, got, jout) < _tol(name)
+    # 3-layer outputs reach ~6e3 (rgcn), where one fp32 ulp is 4.9e-4 and
+    # the reference's own runner is 1.5e-3 off its oracle: held relative to
+    # max|ref| there, as reference `tests/test_multilayer.py` holds stacks
+    scaled = n_layers == 3
+    assert _err(name, got, oracle, scaled) < _tol(name)
+    assert _err(name, got, jout, scaled) < _tol(name)
 
     tref = texecutor.run_reference(ttr, g, inputs, params, device="cpu")[0]
-    assert _err(name, tref.numpy(), oracle) < _tol(name)
+    assert _err(name, tref.numpy(), oracle, scaled) < _tol(name)
+
+
+def _layer_by_layer_oracle(name, n_layers, g, inputs, params):
+    """Chain n_layers SINGLE-layer whole-graph references of `repro`: layer
+    l's output becomes layer l+1's input, per-layer params stripped of
+    their prefix (reference `tests/test_multilayer.py:30`)."""
+    x = np.asarray(inputs["x"])
+    for layer in range(n_layers):
+        prefix = f"l{layer}."
+        p_l = {k[len(prefix):]: v for k, v in params.items()
+               if k.startswith(prefix)}
+        inp_l = {"x": x}
+        for shared in ("dnorm", "etype"):
+            if shared in inputs:
+                inp_l[shared] = inputs[shared]
+        x = np.asarray(jexecutor.run_reference(
+            jmodels.trace_named(name, DIM, DIM), g, inp_l, p_l)[0])
+    return x
+
+
+@pytest.mark.parametrize("n_layers", [2, 3])
+@pytest.mark.parametrize("name", MODELS)
+def test_stacked_engines_match_layer_by_layer_oracle(name, n_layers):
+    """Both tiled engines of the port (run_tiled on the tile set, the
+    runner on its size buckets), with and without kernel dispatch, against
+    chained single-layer references, as reference
+    `tests/test_multilayer.py:112` holds its engines."""
+    g = jgraphs.random_graph(150, 600, seed=3, model="powerlaw", n_edge_types=3)
+    ttr = tmodels.trace_stacked(name, n_layers, DIM, DIM, DIM)
+    jtr = jmodels.trace_stacked(name, n_layers, DIM, DIM, DIM)
+    params, inputs = jmodels.init_params(jtr), jmodels.init_inputs(jtr, g)
+    oracle = _layer_by_layer_oracle(name, n_layers, g, inputs, params)
+    c = tcompiler.compile_gnn(ttr)
+    ts = ttiling.grid_tile(g, 4, 4, sparse=True)
+    bt = ttiling.bucket_tiles(ts, 3)
+    for kd in (False, True):
+        out_t = texecutor.run_tiled(c, g, ts, inputs, params,
+                                    kernel_dispatch=kd, device="cpu")[0]
+        assert _err_rel(out_t.numpy(), oracle) < 1e-4, (name, "run_tiled", kd)
+        out_p = tpipeline.run_pipelined(c, g, bt, inputs, params,
+                                        kernel_dispatch=kd, device="cpu")[0]
+        assert _err_rel(out_p.numpy(), oracle) < 1e-4, (name, "pipelined", kd)
+
+
+def _err_rel(got, want):
+    return float(np.max(np.abs(got - want)) / max(1.0, float(np.max(np.abs(want)))))
 
 
 @pytest.mark.parametrize("name,reorder,n_buckets", [

@@ -113,8 +113,6 @@ def test_unported_routes_raise():
     params = tmodels.init_params(tr)
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         TServer("gcn", params, shard_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        TServer("gcn", params, tune_cache=object(), device="cpu")
     with pytest.raises(ValueError, match="n_layers"):
         TServer(tcompiler.compile_gnn(tr), params, n_layers=2, device="cpu")
     with pytest.raises(ValueError, match="shape"):
