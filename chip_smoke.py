@@ -67,12 +67,27 @@ Phases, each printing one JSON line or more:
    (24 simulator evaluations, the 2 finalists timed 5 times each by CUDA
    events on the card), then the class served through
    ``InferenceServer(tune_cache=...)``: the tuned registration key, the
-   outputs against ``run_reference``, no build on a repeat submit.
+   outputs against ``run_reference``, no build on a repeat submit;
+11. sharded: ``ShardedRunner`` on a mesh of 4 logical shards of one card
+   (``[cuda:0] * 4``, named explicitly: a one-card mesh is a repeated
+   list) — the coAuthorsDBLP stand-in on phase 5's CSR tiles, mincut plan,
+   2-layer gcn and gat against ``run_reference``, counted exchanges a pass
+   against ``exchange_census``, ``verify_exchange`` clean, the rows the
+   restricted exchange ships against the full layout, warm seconds (median
+   of 3) beside ``run_pipelined``'s on the same tiles, peak memory; phase
+   4's batch through ``InferenceServer(shard_devices=4)`` for gcn and gat
+   against the unsharded server (0 builds after warm-up, every batch
+   sharded); on the batch's padded graph a 2 x 2 ("shards", "model") gcn
+   pass and a 4-shard scan pass of sage (rows with in-degree >= 1: ROADMAP
+   C.1) against ``run_reference``, and a 2-shard ``confirm_wallclock``
+   finalist on ``[cuda:0] * 2``.
 
 Launch counters are set to 0 before phase 4 and read after phase 5, set to
 0 again before phase 7 and read after it, and likewise around each of
-phases 8, 9 and 10; every kernel must have launched on its path (in phase
-8 all four tile kernels).  Then one ``{"kernels": [...]}`` line (all six,
+phases 8, 9 and 10; phase 11 adds up the launches of its sharded calls
+alone, leaving out the unsharded baselines it runs beside them.  Every
+kernel must have launched on its path (in phases 8 and 11 all four tile
+kernels).  Then one ``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
@@ -97,7 +112,7 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # in fp32 in another order, and that difference scales with the terms'
 # magnitudes, not with the result (a high-degree row's sum cancels)
 KERNEL_TOL = (1e-4, 1e-4)
-MODEL_TOL = {"gcn": 5e-4, "gat": 1e-4}   # vs the oracle, scaled by max(1, |ref|)
+MODEL_TOL = {"gcn": 5e-4, "gat": 1e-4, "sage": 5e-4}   # vs the oracle, x max(1, |ref|)
 WIDTH = 128                    # the paper's embedding size (EMBED)
 SOURCE = "src/repro_torch/kernels/tile_spmm/csrc/tile_spmm.cu"
 REPLACES = {
@@ -1146,6 +1161,203 @@ def autotune_phase(graphs, dev, *, width=WIDTH, max_evals=24, top=2, repeats=5):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sharded execution over logical shards of one card
+# ---------------------------------------------------------------------------
+
+def _timed(fn, dev, repeats: int):
+    """The last result of ``fn`` and the seconds of each of ``repeats``
+    calls, host-timed to a synchronize."""
+    import torch
+    secs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def sharded_phase(graphs, whole, whole_tiles, dev, *, width=WIDTH,
+                  n_shards=4, repeats=3):
+    """``ShardedRunner`` over ``n_shards`` logical shards of ``dev``: the
+    whole graph on its CSR tiles, the serving batch through the sharded
+    route, then a 2-D mesh pass, a scan pass of sage and a sharded
+    autotune finalist on the serving batch.
+
+    Returns the tile kernels' launches made by the sharded calls alone, by
+    part: the unsharded baselines run beside them (``run_pipelined``, the
+    unsharded server) are left out of the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compiler
+    from repro_torch.core.analysis import exchange_census, verify_exchange
+    from repro_torch.core.executor import run_reference
+    from repro_torch.core.pipeline import PipelinedRunner, ShardedRunner
+    from repro_torch.core.tiling import exchange_sets
+    from repro_torch.gnn import graphs as G
+    from repro_torch.gnn import models as M
+    from repro_torch.kernels.tile_spmm import kernel as K
+    from repro_torch.launch import autotune as AT
+    from repro_torch.serve import InferenceServer, ShapeRegistry
+
+    launches = {}
+
+    def counted(fn, part):
+        """``fn``, adding the tile kernels each call launches to
+        ``launches[part]``."""
+        def call(*args, **kw):
+            before = dict(K.LAUNCHES)
+            try:
+                return fn(*args, **kw)
+            finally:
+                got = launches.setdefault(part, {})
+                for name, n in K.LAUNCHES.items():
+                    got[name] = got.get(name, 0) + n - before.get(name, 0)
+        return call
+
+    card = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    mesh = [card] * n_shards
+    emit(dict(phase="sharded_mesh", devices=[str(d) for d in mesh],
+              note=f"{n_shards} logical shards on one card: each shard's "
+                   "work and every exchange run on the same device"))
+
+    # -- the whole graph, mincut plan: oracle, census, exchange, speed
+    for name in ("gcn", "gat"):
+        tr = M.trace_stacked(name, 2, width, width, width)
+        c = compiler.compile_gnn(tr)
+        params = M.init_params(tr, seed=0)
+        inputs = M.init_inputs(tr, whole, seed=0)
+        sp = c.schedule(True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = ShardedRunner(c, whole, whole_tiles, n_shards, mode="mincut",
+                               devices=mesh, device=dev)
+        build_s = time.perf_counter() - t0
+        run = counted(runner, "whole_graph")
+        (got,), first = _timed(lambda: run(inputs, params), dev, 1)
+        per_pass = runner.mesh.collectives
+        census = exchange_census(sp).n_collectives
+        require(per_pass == census,
+                f"sharded {name}: {per_pass} exchanges a pass, census {census}")
+        errors = [d.format() for d in verify_exchange(
+            sp, tiles=whole_tiles, plan=runner.plan) if d.severity == "error"]
+        require(not errors, f"sharded {name}: verify_exchange: {errors}")
+        _, warm = _timed(lambda: run(inputs, params), dev, repeats)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = run_reference(tr, whole, inputs, params, device=dev)[0]
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                f"sharded {name}: output shape {tuple(got.shape)} or non-finite")
+        err = scaled_err(got, want)
+        require(err <= MODEL_TOL[name], f"sharded {name}: err {err} over {MODEL_TOL[name]}")
+        del want, got
+        plain = PipelinedRunner(c, whole, whole_tiles, device=dev)
+        plain(inputs, params)
+        _, plain_warm = _timed(lambda: plain(inputs, params), dev, repeats)
+        emit(dict(phase="sharded_whole_graph", model=f"{name}_x2", layout="csr",
+                  graph=whole.name, vertices=whole.n_vertices,
+                  edges=whole.n_edges, shards=n_shards, mode="mincut",
+                  local_parts=runner.plan.n_local_parts, caps=list(runner.caps),
+                  build_s=build_s, first_s=first[0],
+                  warm_s=statistics.median(warm), warm_runs_s=warm,
+                  pipelined_warm_s=statistics.median(plain_warm),
+                  pipelined_runs_s=plain_warm,
+                  exchanges_per_pass=per_pass, census=census,
+                  # rows an interior (restricted) exchange ships, the rows
+                  # remote shards read, and the full padded layout
+                  restricted_rows=n_shards * runner.caps[-1],
+                  cut_rows=exchange_sets(whole_tiles, runner.plan).cut_rows,
+                  full_rows=n_shards * runner.plan.n_local_parts * runner.dmax,
+                  err_vs_oracle=err, tol=MODEL_TOL[name], peak_mem_gb=peak))
+        del runner, plain
+        torch.cuda.empty_cache()
+
+    # -- the serving batch through the sharded route, against the
+    # unsharded server
+    batch = G.batch_graphs(graphs)
+    for name in ("gcn", "gat"):
+        tr = M.trace_stacked(name, 2, width, width, width)
+        c = compiler.compile_gnn(tr)
+        params = M.init_params(tr, seed=0)
+        inputs = [M.init_inputs(tr, g, seed=i) for i, g in enumerate(graphs)]
+        want = torch.cat([o[0] for o in InferenceServer(
+            c, params, device=dev).submit(graphs, inputs)])
+        server = InferenceServer(c, params, shard_devices=n_shards,
+                                 shard_mesh_devices=mesh, device=dev)
+        submit = counted(server.submit, "serving")
+        lat = []
+        for _ in range(3):
+            outs, secs = _timed(lambda: submit(graphs, inputs), dev, 1)
+            lat += secs
+        st = server.stats()
+        require(server.compile_count == 1 and server.cache_hits == 2,
+                f"sharded serving {name}: builds={server.compile_count} "
+                f"hits={server.cache_hits}, expected 1 build then 2 hits")
+        require(st["sharded_batches"] == 3,
+                f"sharded serving {name}: {st['sharded_batches']} of 3 batches sharded")
+        got = torch.cat([o[0] for o in outs])
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                f"sharded serving {name}: output shape or non-finite")
+        err = scaled_err(got, want)
+        require(err <= MODEL_TOL[name],
+                f"sharded serving {name}: err {err} vs unsharded over {MODEL_TOL[name]}")
+        emit(dict(phase="sharded_serving", model=f"{name}_x2", layout="coo",
+                  shards=n_shards, graphs=len(graphs),
+                  vertices=batch.graph.n_vertices, cold_s=lat[0],
+                  warm_p50_s=statistics.median(lat[1:]),
+                  builds=server.compile_count, hits=server.cache_hits,
+                  sharded_batches=st["sharded_batches"],
+                  err_vs_unsharded=err, tol=MODEL_TOL[name]))
+        del server
+        torch.cuda.empty_cache()
+
+    # -- other paths on the serving batch's padded graph (COO, as served)
+    padded, tiles, _, _ = ShapeRegistry().canonical("shapes", batch.graph)
+    in_deg = np.bincount(padded.dst, minlength=padded.n_vertices)
+    for name, n_sh, M_axis, dispatch in (("gcn", 2, 2, True), ("sage", n_shards, 1, False)):
+        tr = M.trace_stacked(name, 2, width, width, width)
+        c = compiler.compile_gnn(tr)
+        params = M.init_params(tr, seed=0)
+        inputs = M.init_inputs(tr, padded, seed=0)
+        runner = ShardedRunner(c, padded, tiles, n_sh, mode="mincut",
+                               model_axis=M_axis, kernel_dispatch=dispatch,
+                               devices=[card] * (n_sh * M_axis), device=dev)
+        run = counted(runner, "paths")
+        (got,), secs = _timed(lambda: run(inputs, params), dev, 1)
+        want = run_reference(tr, padded, inputs, params, device=dev)[0]
+        rows = torch.as_tensor(in_deg > 0, device=got.device)
+        if name == "sage":      # the -1e30 empty-max sentinel (ROADMAP C.1)
+            got, want = got[rows], want[rows]
+        require(bool(torch.isfinite(got).all()), f"sharded {name}: non-finite")
+        err = scaled_err(got, want)
+        require(err <= MODEL_TOL[name],
+                f"sharded {name} K={n_sh} M={M_axis}: err {err}")
+        emit(dict(phase="sharded_path", model=f"{name}_x2", shards=n_sh,
+                  model_axis=M_axis, kernel_dispatch=dispatch,
+                  rows_checked=int(rows.sum()) if name == "sage" else padded.n_vertices,
+                  exchanges_per_pass=runner.mesh.collectives, first_s=secs[0],
+                  err_vs_oracle=err, tol=MODEL_TOL[name]))
+        del runner
+
+    tr = M.trace_stacked("gcn", 2, width, width, width)
+    c = compiler.compile_gnn(tr)
+    trial = AT.padded_cost(c, batch.graph, AT.TileConfig(
+        n_dst_parts=16, n_src_parts=16, n_buckets=2, n_shards=2,
+        layout="csr", shard_mode="mincut"))
+    counted(AT.confirm_wallclock, "autotune")(c, batch.graph, [trial],
+                         M.init_inputs(tr, batch.graph, seed=0),
+                         M.init_params(tr, seed=0), top=1, repeats=repeats,
+                         device=dev, devices=[card] * 2)
+    require(trial.wall_s is not None and trial.wall_s > 0,
+            "sharded autotune: the 2-shard finalist has no wall-clock time")
+    emit(dict(phase="sharded_autotune", model="gcn_x2",
+              config=trial.config.to_dict(), cycles=trial.cycles,
+              wall_s=trial.wall_s, repeats=repeats))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1252,6 +1464,16 @@ def main() -> int:
     emit(dict(phase="autotune_launches", **K.LAUNCHES))
     require(K.LAUNCHES["tile_spmm"] + K.LAUNCHES["tile_spmm_csr"] > 0,
             "no SpMM kernel was launched by the tuned route")
+
+    # 11. sharded execution over 4 logical shards of the card; only the
+    # sharded calls count, not the unsharded baselines beside them
+    K.reset_launches()
+    by_part = sharded_phase(graphs, dblp, csr_tiles, dev)
+    sharded_launches = {name: sum(p.get(name, 0) for p in by_part.values())
+                        for name in K.LAUNCHES}
+    emit(dict(phase="sharded_launches", **sharded_launches, by_part=by_part))
+    for name, n in sharded_launches.items():
+        require(n > 0, f"kernel {name} was not launched on the sharded path")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

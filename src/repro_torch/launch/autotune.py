@@ -248,32 +248,42 @@ def confirm_wallclock(compiled: C.CompiledGNN, graph: Graph,
                       inputs: Dict, params: Dict, *, top: int = 2,
                       repeats: int = 3,
                       kernel_dispatch: bool = True,
-                      device=None) -> List[Trial]:
+                      device=None, devices=None) -> List[Trial]:
     """Measure the real runner on the ``top`` cheapest trials (median of
     ``repeats`` after a warmup call) on ``device`` (``cuda`` unless named)
     and attach ``wall_s`` in place.  On a card each call is timed by a pair
     of CUDA events recorded around it after a synchronize (the stream's
     span, host gaps included); on the CPU by ``time.perf_counter``.  Shard
-    counts are clamped to the devices a runner can use — the simulator may
-    legitimately prefer an 8-chip layout the host cannot realize."""
+    counts are clamped to the mesh ``devices`` (the visible cards, or
+    ``[device]`` off CUDA, unless named) — the simulator may legitimately
+    prefer an 8-chip layout the host cannot realize; a finalist with more
+    than one shard runs a ``ShardedRunner`` over the mesh."""
     import torch
 
     from ..convert import to_device
-    from ..core.pipeline import PipelinedRunner
+    from ..core.exchange import default_devices
+    from ..core.pipeline import PipelinedRunner, ShardedRunner
     from ..device import resolve
 
     dev = resolve(device)
+    devices = (default_devices(dev) if devices is None
+               else [torch.device(d) for d in devices])
     inputs = {k: to_device(v, dev) for k, v in inputs.items()}
     params = {k: to_device(v, dev) for k, v in params.items()}
     confirmed: List[Trial] = []
     for t in list(trials)[:max(1, top)]:
         cfg = t.config
         tiles, ro = build_tiles(graph, cfg)
-        # every shard count clamps to one device until the sharded runner
-        # is ported (ROADMAP A.7)
-        runner = PipelinedRunner(compiled, ro.graph, tiles,
-                                 kernel_dispatch=kernel_dispatch,
-                                 reordering=ro, device=dev)
+        n_dev = min(cfg.n_shards, len(devices))
+        if n_dev > 1:
+            runner = ShardedRunner(compiled, ro.graph, tiles, n_dev,
+                                   mode=cfg.shard_mode, devices=devices,
+                                   kernel_dispatch=kernel_dispatch,
+                                   reordering=ro, device=dev)
+        else:
+            runner = PipelinedRunner(compiled, ro.graph, tiles,
+                                     kernel_dispatch=kernel_dispatch,
+                                     reordering=ro, device=dev)
         runner(inputs, params)                               # bind + warm
         times = []
         for _ in range(max(1, repeats)):
@@ -300,7 +310,7 @@ def autotune(compiled: C.CompiledGNN, graph: Graph, *,
              start: Optional[TileConfig] = None, hw: Optional[HWConfig] = None,
              max_evals: int = 48, max_shards: int = 8, top: int = 2,
              repeats: int = 3, kernel_dispatch: bool = True,
-             device=None) -> TuneResult:
+             device=None, devices=None) -> TuneResult:
     """Full search: hill-climb on the simulator, then (when ``inputs`` and
     ``params`` are given) wall-clock confirmation of the finalists — the
     measured winner among them becomes :attr:`TuneResult.best`; without
@@ -312,7 +322,7 @@ def autotune(compiled: C.CompiledGNN, graph: Graph, *,
         confirmed = confirm_wallclock(compiled, graph, trials, inputs, params,
                                       top=top, repeats=repeats,
                                       kernel_dispatch=kernel_dispatch,
-                                      device=device)
+                                      device=device, devices=devices)
         best = min(confirmed, key=lambda t: (t.wall_s, t.cycles))
     else:
         best = trials[0]

@@ -1,5 +1,5 @@
 """`InferenceServer` — the batched multi-graph serving front door (port of
-``repro.serve.engine``, single-device route).
+``repro.serve.engine``).
 
 ``submit(graphs, inputs)`` serves a whole request batch through ONE
 ScheduledProgram execution per size class:
@@ -11,7 +11,9 @@ ScheduledProgram execution per size class:
    (:class:`~repro_torch.serve.signature.ShapeRegistry`);
 3. the structural signature keys the
    :class:`~repro_torch.serve.cache.ProgramCache` — a hit reuses a built
-   :class:`~repro_torch.core.pipeline.PipelinedRunner` via ``run_with``
+   :class:`~repro_torch.core.pipeline.PipelinedRunner` (or, for large
+   classes under ``shard_devices``, a
+   :class:`~repro_torch.core.pipeline.ShardedRunner`) via ``run_with``
    (rebind tile operands, no rebuild);
 4. merged outputs are sliced back into per-graph tensors on the device.
 """
@@ -25,7 +27,10 @@ import torch
 
 from ..convert import params_from_reference, to_device
 from ..core import compiler as C
-from ..core.pipeline import PipelinedRunner
+from ..core import schedule as S
+from ..core.exchange import ShardMesh, default_devices
+from ..core.pipeline import (PipelinedRunner, ShardedRunner,
+                             shard_layout_signature)
 from ..device import resolve
 from ..gnn import models as M
 from ..gnn.graphs import Graph, batch_graphs
@@ -60,8 +65,17 @@ class InferenceServer:
     caps.  Tuned and default registrations and cache keys never alias:
     both carry the tuned config key.
 
-    Sharded serving (``shard_devices > 1``) is not ported yet and raises
-    ``NotImplementedError``.
+    ``shard_devices=N`` routes *large* size classes — padded vertex count
+    >= ``shard_min_vertices`` — through a data-parallel
+    :class:`~repro_torch.core.pipeline.ShardedRunner` over N shards of the
+    mesh ``shard_mesh_devices`` (the visible cards unless named; N logical
+    shards on one card need that card named N times), with contiguous
+    partition assignment and power-of-two per-shard tile caps, so
+    structurally-similar requests share one runner.  The cache key then
+    carries the shard count, the realized shard layout, the
+    ``kernel_dispatch`` flag and the mesh's devices: a sharded runner never
+    aliases a single-device one, another mesh or a scan-scheduled variant.  A
+    tuned shard count caps the mesh size and never raises it.
     """
 
     def __init__(self, model: Union[str, C.CompiledGNN],
@@ -69,6 +83,9 @@ class InferenceServer:
                  n_layers: int = 1, kernel_dispatch: bool = True,
                  cache_capacity: int = 32, target_part: int = 256,
                  shard_devices: Optional[int] = None,
+                 shard_min_vertices: int = 2048,
+                 shard_model_axis: int = 1,
+                 shard_mesh_devices: Optional[Sequence] = None,
                  tune_cache=None,
                  cache: Optional[ProgramCache] = None,
                  shapes: Optional[ShapeRegistry] = None,
@@ -88,8 +105,16 @@ class InferenceServer:
             cache_capacity: LRU capacity when no shared ``cache`` is given.
             target_part: vertices per destination partition for the
                 default serving grid.
-            shard_devices: sharded serving; only ``None`` or 1 (ROADMAP
-                A.7 ports the sharded route).
+            shard_devices: route large classes over N shards.
+            shard_min_vertices: padded-vertex threshold for the sharded
+                route.
+            shard_model_axis: feature-axis width of the sharded route's
+                2-D mesh — ``M > 1`` splits each boundary exchange into
+                per-rank slices over ``shard_devices * M`` devices; part of
+                the cache key, so different splits never alias.
+            shard_mesh_devices: the ordered device list of the sharded
+                route's mesh; the visible cards (or ``[device]`` off CUDA)
+                unless named.
             tune_cache: optional
                 :class:`~repro_torch.launch.autotune.TuneCache` routing
                 tuned classes onto tuned tile configs.
@@ -101,17 +126,21 @@ class InferenceServer:
             device: where requests run; ``cuda`` unless named.
 
         Raises:
-            ValueError: on a layer-count conflict or ``shard_devices < 1``.
-            NotImplementedError: for ``shard_devices > 1``.
+            ValueError: on a layer-count conflict or an unrealizable
+                ``shard_devices``.
             RuntimeError: when ``cuda`` is asked for and no card is visible.
         """
-        if shard_devices is not None and shard_devices < 1:
-            raise ValueError(f"shard_devices must be >= 1, got {shard_devices}")
-        if shard_devices is not None and shard_devices > 1:
-            raise NotImplementedError(
-                "sharded serving (shard_devices > 1) is not ported yet: "
-                "ROADMAP A.7 (sharded execution)")
         self.device = resolve(device)
+        if shard_model_axis < 1:
+            raise ValueError(
+                f"shard_model_axis must be >= 1, got {shard_model_axis}")
+        self.shard_mesh_devices = (
+            default_devices(self.device) if shard_mesh_devices is None
+            else [torch.device(d) for d in shard_mesh_devices])
+        if shard_devices is not None:
+            # fail at configuration time, not when the first large batch
+            # arrives hours into a serving session
+            ShardMesh(self.shard_mesh_devices, shard_devices, shard_model_axis)
         if isinstance(model, str):
             self.compiled = C.compile_gnn(
                 M.trace_named(model) if n_layers == 1
@@ -126,8 +155,16 @@ class InferenceServer:
             params, self.device, self.compiled.trace)
         self.kernel_dispatch = kernel_dispatch
         self.target_part = target_part
+        self.shard_devices = shard_devices
+        self.shard_min_vertices = shard_min_vertices
+        self.shard_model_axis = shard_model_axis
+        self._mesh_key = ("mesh", tuple(str(d) for d in self.shard_mesh_devices),
+                          str(self.device))
         self.tune_cache = tune_cache
         self.sp = self.compiled.schedule(self.kernel_dispatch)
+        self._kernel_tags = tuple(sorted(
+            {g.kernel for ph in self.sp.phases for g in ph.gathers}
+            - {S.KERNEL_SCAN}))
         self.cache = cache if cache is not None \
             else ProgramCache(capacity=cache_capacity)
         self.shapes = shapes if shapes is not None \
@@ -138,6 +175,7 @@ class InferenceServer:
         self._requests = 0
         self._graphs_served = 0
         self._batches_run = 0
+        self._sharded_batches = 0
 
     # ------------------------------------------------------------------ API
     def submit(self, graphs: Sequence[Graph], inputs: Sequence[Dict],
@@ -174,10 +212,11 @@ class InferenceServer:
 
     def stats(self) -> Dict:
         """Serving counters: requests/graphs/batches served, cache size and
-        hit/miss/compile counts, layer count."""
+        hit/miss/compile counts, layer count, sharded-batch count."""
         return dict(requests=self._requests, graphs=self._graphs_served,
                     batches=self._batches_run, cache_size=len(self.cache),
                     n_layers=self.compiled.n_layers,
+                    sharded_batches=self._sharded_batches,
                     cache=self.cache.stats.as_dict())
 
     @property
@@ -233,14 +272,48 @@ class InferenceServer:
                     [np.asarray(inp[name]) for inp in inputs]), rows),
                     self.device)
 
-        key = structure_signature(self.compiled, tiles, E_pad,
-                                  self.kernel_dispatch,
-                                  reorder=ro.mode) + (tuned_key,)
-        runner = self.cache.get_or_build(
-            key, lambda: PipelinedRunner(self.compiled, ro.graph, tiles,
-                                         kernel_dispatch=self.kernel_dispatch,
-                                         reordering=ro, device=self.device),
-            owner=self.cache_owner)
+        n_dev = (self.shard_devices
+                 if self.shard_devices and self.shard_devices > 1
+                 and V_pad >= self.shard_min_vertices else 1)
+        if tuned is not None and n_dev > 1:
+            # the tuned shard count caps (never raises) the mesh size
+            n_dev = max(1, min(n_dev, tuned.n_shards))
+        if n_dev > 1:
+            # sharded route: the key carries the devices a runner is bound
+            # to (servers that share a cache may name different meshes),
+            # the mesh size, the realized shard layout, the dispatch flag,
+            # the reorder mode and the tuned config
+            key = structure_signature(self.compiled, tiles, E_pad,
+                                      self.kernel_dispatch,
+                                      reorder=ro.mode) + (
+                self._mesh_key,
+                shard_layout_signature(tiles, n_dev, mode="contiguous",
+                                       quantize_tile_cap=True,
+                                       kernel_dispatch=self.kernel_dispatch,
+                                       kernels=self._kernel_tags,
+                                       model_axis=self.shard_model_axis),
+                tuned_key)
+            runner = self.cache.get_or_build(
+                key, lambda: ShardedRunner(self.compiled, ro.graph, tiles,
+                                           n_dev, mode="contiguous",
+                                           quantize_tile_cap=True,
+                                           devices=self.shard_mesh_devices,
+                                           kernel_dispatch=self.kernel_dispatch,
+                                           reordering=ro,
+                                           model_axis=self.shard_model_axis,
+                                           device=self.device),
+                owner=self.cache_owner)
+            with self._stats_lock:
+                self._sharded_batches += 1
+        else:
+            key = structure_signature(self.compiled, tiles, E_pad,
+                                      self.kernel_dispatch,
+                                      reorder=ro.mode) + (tuned_key,)
+            runner = self.cache.get_or_build(
+                key, lambda: PipelinedRunner(self.compiled, ro.graph, tiles,
+                                             kernel_dispatch=self.kernel_dispatch,
+                                             reordering=ro, device=self.device),
+                owner=self.cache_owner)
         outs = runner.run_with(tiles, merged_inputs, params, reordering=ro)
         with self._stats_lock:
             self._batches_run += 1

@@ -126,6 +126,16 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.moe_dispatch.ops, repro_torch.serve.server, "
             "repro_torch.launch.autotune, repro_torch.analyze\n"
+            # a 2-shard pass on the CPU loads nothing of jax or repro either
+            "from repro_torch.core import compiler, pipeline, tiling\n"
+            "from repro_torch.gnn import graphs, models\n"
+            "g = graphs.random_graph(60, 240, seed=0)\n"
+            "tr = models.trace_stacked('gcn', 2, 8, 8, 8)\n"
+            "out = pipeline.run_sharded(compiler.compile_gnn(tr), g, "
+            "tiling.grid_tile(g, 4, 4, sparse=True), models.init_inputs(tr, g), "
+            "models.init_params(tr), n_devices=2, devices=['cpu'] * 2, "
+            "device='cpu')\n"
+            "assert out[0].shape == (60, 8)\n"
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m == 'repro' or m.startswith('repro.')]\n"
             "print(bad)\n"

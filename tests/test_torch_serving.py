@@ -1,6 +1,6 @@
 """The port's `InferenceServer` against `repro.serve.InferenceServer` on the
 same request stream: equal outputs, equal cache hit/miss/build counts, and
-the routes the port does not have yet refuse loudly."""
+misconfigured servers refuse loudly at construction."""
 import numpy as np
 import pytest
 
@@ -111,8 +111,11 @@ def test_shared_cache_keeps_layer_counts_apart():
 def test_unported_routes_raise():
     tr = tmodels.trace_named("gcn", DIM, DIM)
     params = tmodels.init_params(tr)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        TServer("gcn", params, shard_devices=2, device="cpu")
+    # a mesh of two devices cannot hold four shards: refused at
+    # construction, not when the first large batch arrives
+    with pytest.raises(ValueError, match="mesh lists only 2"):
+        TServer("gcn", params, shard_devices=4,
+                shard_mesh_devices=["cpu", "cpu"], device="cpu")
     with pytest.raises(ValueError, match="n_layers"):
         TServer(tcompiler.compile_gnn(tr), params, n_layers=2, device="cpu")
     with pytest.raises(ValueError, match="shape"):
