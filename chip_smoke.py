@@ -32,7 +32,13 @@ Phases, each printing one JSON line or more:
    their plain versions, in fp32 and bf16, at phase 7's shapes — flash
    (1, 4096, 128, 192 / v 128) causal (DeepSeek-V2 MLA prefill), (1, 4096,
    12, 128) with 2 KV heads causal (Qwen2-1.5B prefill), (4, 1, 12, 128)
-   against a 40-slot cache with ``kv_len`` (its decode); grouped FFN over
+   against a 40-slot cache with ``kv_len`` (its decode), (1, 4352, 64, 128)
+   with 8 KV heads causal (Qwen2-VL: 256 patches + 4,096 tokens), (1, 1500,
+   20, 64) not causal (Whisper's encoder), 448 queries against 1,500 keys
+   not causal (its cross-attention) and (4, 1, 20, 64) against them (a
+   decode step's), (1, 4096, 32, 80) causal with window 4,096 (Zamba2's
+   shared block) and (4, 1, 32, 80) against its 40-slot ring cache with
+   ``kv_len``; grouped FFN over
    (160, 48, 5120) buckets with f 1536 and the live counts of a real
    routing of a 1,024-token prefill chunk, and over (160, 8, 5120) for a
    4-token decode step — plus two flash cases off the path: a causal GQA
@@ -43,16 +49,22 @@ Phases, each printing one JSON line or more:
    ``FFN_OFF_PATH``; elementwise limits scaled by each sum's rounding
    magnitude (see ``LM_KERNEL_TOL``); one flash call and one grouped-FFN
    call with host syncs made errors;
-7. LM serving: for qwen2-1.5b (all 28 layers) and deepseek-v2-236b (full
-   width, depth cut to 2 layers: the leading dense layer and one MoE
-   layer), random fp32 weights from a seed; ``serve_requests`` with
+7. LM serving, all six families at full width with random fp32 weights
+   from a seed: qwen2-1.5b (all 28 layers), deepseek-v2-236b (depth cut to
+   2 layers: the leading dense layer and one MoE layer), qwen2-vl-72b
+   (depth cut to 2 layers), whisper-large-v3 (32 + 32 layers), xlstm-1.3b
+   (48) and zamba2-2.7b (54); ``serve_requests`` with
    ``launch/serve.py``'s defaults (8 requests, batch 4, prompts of 4-24
    tokens from ``default_rng(0)``, 16 new tokens), tokens/s and the median
    decode-step latency; teacher-forced decode of an 8-token prompt against
-   ``forward`` at every position (2e-3 dense, 5e-3 MLA, scaled by
-   max(1, |ref|): the reference's own tolerances); ``make_prefill_step`` on
-   one 4,096-token prompt, twice (first and warm seconds) with its peak
-   memory; a ``torch.profiler`` breakdown of 8 decode steps and a prefill;
+   ``forward`` at every position (vlm without patches, audio with the
+   cross cache filled from the encoder's K/V; 2e-3 dense-style, 5e-3 MLA,
+   ssm and hybrid, scaled by max(1, |ref|): the reference's own
+   tolerances); ``make_prefill_step`` on one prompt (4,096 tokens; vlm
+   with 256 patch embeddings before them; whisper 448 tokens over 1,500
+   frames; xlstm 1,024 tokens, its sLSTM a step per token), twice (first
+   and warm seconds) with its peak memory; a ``torch.profiler`` breakdown
+   of 8 decode steps and a prefill; the flash launches of each model;
 8. tiled: ``run_tiled`` (the interpreter engine) on phase 4's batch padded
    by the server's ``ShapeRegistry`` (40,000 V), tiled as served (COO) and
    by ``grid_tile(64, 64, layout="csr")``, 2-layer gcn and gat at width
@@ -87,7 +99,7 @@ Launch counters are set to 0 before phase 4 and read after phase 5, set to
 phases 8, 9 and 10; phase 11 adds up the launches of its sharded calls
 alone, leaving out the unsharded baselines it runs beside them.  Every
 kernel must have launched on its path (in phases 8 and 11 all four tile
-kernels).  Then one ``{"kernels": [...]}`` line (all six,
+kernels; in phase 7 flash on every family but ssm).  Then one ``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
@@ -141,8 +153,13 @@ LM_SOURCES = {
 # round to neighbours one unit in the last place apart: 2^-7 of |plain|.
 LM_KERNEL_TOL = {"flash_attention": (1e-6, 1e-5), "grouped_ffn": (1e-6, 1e-7)}
 BF16_ULP = 2.0 ** -7
-LM_MODEL_TOL = {"dense": 2e-3, "moe": 5e-3}   # decode vs forward, x max(1, |ref|)
+# decode vs forward, x max(1, |ref|): the reference's own tolerances
+# (tests/test_archs_smoke.py:80,99,117,134), dense-style 2e-3
+LM_MODEL_TOL = {"dense": 2e-3, "vlm": 2e-3, "audio": 2e-3, "moe": 5e-3, "ssm": 5e-3,
+                "hybrid": 5e-3}
 PREFILL_LEN = 4096
+WHISPER_DECODER_LEN = 448      # whisper's decoder context (max target positions)
+XLSTM_PREFILL_LEN = 1024       # the sLSTM runs one step per token
 # Off the path: shapes that reach the tail paths of the COO tile SpMM
 # (phase 3) and the grouped FFN (phase 6), held at the same limits.
 # COO: tiles per partition (a 0 is a partition with no tile), rows D,
@@ -662,8 +679,10 @@ def _flash_keep(B, Sq, Sk, causal, window, kv_len, dev):
     return keep[None] & (k_pos[None] < lens[:, None, None])
 
 
-def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
-                     cache_len=40, decode_batch=4, runs=5):
+def lm_kernel_checks(cfgs, dev, *, prefill_len=PREFILL_LEN, cache_len=40,
+                     decode_batch=4, runs=5):
+    """``cfgs``: the configs phase 7 serves, by family (dense, moe, vlm,
+    audio, hybrid; ssm runs no kernel)."""
     import dataclasses
 
     import torch
@@ -673,8 +692,10 @@ def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
     from repro_torch.kernels.moe_dispatch import kernel as GK
     from repro_torch.kernels.moe_dispatch import ops as moe_ops
     from repro_torch.kernels.moe_dispatch.ref import grouped_ffn_magnitude, grouped_ffn_ref
+    from repro_torch.models.lm import VLM_PATCHES
     from repro_torch.models.moe import capacity
 
+    dense_cfg, moe_cfg = cfgs["dense"], cfgs["moe"]
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape, scale=1.0):
@@ -719,17 +740,39 @@ def lm_kernel_checks(dense_cfg, moe_cfg, dev, *, prefill_len=PREFILL_LEN,
     # the path does not use (head dim 256, a sliding window, a partial last
     # query tile, kv_len)
     m = moe_cfg.mla
+    decode_lens = [cache_len - (cache_len * i) // (2 * decode_batch)
+                   for i in range(decode_batch)]
     flash_cases = [
         ("mla_prefill", 1, prefill_len, prefill_len, moe_cfg.n_heads, moe_cfg.n_heads,
          m.qk_nope + m.qk_rope, m.v_dim, True, None, None),
         ("gqa_prefill", 1, prefill_len, prefill_len, dense_cfg.n_heads,
          dense_cfg.n_kv_heads, dense_cfg.hdim, dense_cfg.hdim, True, None, None),
         ("gqa_decode", decode_batch, 1, cache_len, dense_cfg.n_heads,
-         dense_cfg.n_kv_heads, dense_cfg.hdim, dense_cfg.hdim, False, None,
-         [cache_len - (cache_len * i) // (2 * decode_batch) for i in range(decode_batch)]),
+         dense_cfg.n_kv_heads, dense_cfg.hdim, dense_cfg.hdim, False, None, decode_lens),
         ("gqa_ragged", 1, 1000, 1000, dense_cfg.n_heads, dense_cfg.n_kv_heads,
          dense_cfg.hdim, dense_cfg.hdim, True, None, None),
         ("window_d256", 2, 65, 130, 4, 2, 256, 256, True, 30, [110, 130]),
+    ]
+    # the other families' shapes (phase 7): the vlm prefill (256 patches +
+    # the prompt, 64 / 8 heads); whisper's encoder (1,500 frames, not
+    # causal), its decoder's cross-attention (448 queries against the 1,500
+    # encoder keys) and a decode step's (no kv_len); zamba2's shared block
+    # (head dim 80, window 4,096) at prefill and as a decode step on its
+    # ring cache (kv_len)
+    vlm, audio, hyb = cfgs["vlm"], cfgs["audio"], cfgs["hybrid"]
+    flash_cases += [
+        ("vlm_prefill", 1, VLM_PATCHES + prefill_len, VLM_PATCHES + prefill_len,
+         vlm.n_heads, vlm.n_kv_heads, vlm.hdim, vlm.hdim, True, None, None),
+        ("whisper_encoder", 1, audio.enc_len, audio.enc_len, audio.n_heads,
+         audio.n_kv_heads, audio.hdim, audio.hdim, False, None, None),
+        ("whisper_cross", 1, WHISPER_DECODER_LEN, audio.enc_len, audio.n_heads,
+         audio.n_kv_heads, audio.hdim, audio.hdim, False, None, None),
+        ("whisper_cross_decode", decode_batch, 1, audio.enc_len, audio.n_heads,
+         audio.n_kv_heads, audio.hdim, audio.hdim, False, None, None),
+        ("zamba_prefill", 1, prefill_len, prefill_len, hyb.n_heads, hyb.n_kv_heads,
+         hyb.hdim, hyb.hdim, True, hyb.attn_window, None),
+        ("zamba_ring_decode", decode_batch, 1, cache_len, hyb.n_heads, hyb.n_kv_heads,
+         hyb.hdim, hyb.hdim, False, hyb.attn_window, decode_lens),
     ]
     for case, B, Sq, Sk, H, K, D, Dv, causal, window, kv_list in flash_cases:
         q32, k32, v32 = randn(B, Sq, H, D), randn(B, Sk, K, D), randn(B, Sk, K, Dv)
@@ -872,22 +915,58 @@ def device_breakdown(fn, n_calls: int = 1, top: int = 6):
                      for e in kernels[:top]])
 
 
-def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=4,
-                     max_prompt=24, max_new=16, check_len=8):
+def family_inputs(cfg, B, gen, dev):
+    """What a prompt of the family carries besides its tokens: the stub
+    frontends' embeddings, N(0, 1) from ``gen`` — 256 patches (vlm) or
+    ``enc_len`` frames (audio)."""
+    import torch
+    from repro_torch.models.lm import VLM_PATCHES
+    n = {"vlm": VLM_PATCHES, "audio": cfg.enc_len}.get(cfg.family)
+    if n is None:
+        return {}
+    key = "patch_embeds" if cfg.family == "vlm" else "frames"
+    return {key: torch.randn((B, n, cfg.d_model), generator=gen, device=dev)}
+
+
+def fill_cross_cache(cfg, params, cache, frames):
+    """Audio: each decoder layer's cross cache gets the K/V its
+    cross-attention projects from the encoder output of ``frames``, as
+    ``forward`` computes them.  (The serving loop leaves the cache zeros,
+    as the reference's does.)"""
+    from repro_torch.models import lm
+    enc = lm.encode(cfg, params, frames)
+    B, T, _ = enc.shape
+    xa = params["layers"]["xattn"]
+    for i in range(cfg.n_layers):
+        for name in ("k", "v"):
+            t = enc @ xa["w" + name][i]
+            if cfg.qkv_bias:
+                t = t + xa["b" + name][i]
+            cache["cross"][name][i] = t.reshape(B, T, cfg.n_kv_heads, cfg.hdim)
+
+
+def lm_serving_phase(models, dev, *, requests=8, batch=4, max_prompt=24, max_new=16,
+                     check_len=8):
+    """``models``: (label, cfg, prefill tokens) each.  Returns the flash
+    kernel's launches during each model's part of the phase, by label."""
     import numpy as np
     import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.serve import serve_requests
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import lm
     from repro_torch.models.common import materialize, tree_items
 
-    for label, cfg in models:
+    flash_launches = {}
+    for label, cfg, prefill_len in models:
+        launches0 = FK.LAUNCHES["flash_attention"]
         t0 = time.perf_counter()
         params = materialize(torch.Generator(device=dev).manual_seed(0),
                              lm.model_template(cfg), dtype_override="float32",
                              device=dev)
         n_params = sum(t.numel() for _, t in tree_items(params))
         init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(2)
 
         # serving with launch/serve.py's defaults
         rng = np.random.default_rng(0)
@@ -899,14 +978,18 @@ def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=
         require(toks.size == requests * max_new and toks.min() >= 0
                 and toks.max() < cfg.vocab, f"serving {label}: bad tokens")
 
-        # teacher-forced decode against forward
+        # teacher-forced decode against forward (vlm: no patch prefix;
+        # audio: the cross cache filled from the encoder's K/V)
         tokens = torch.as_tensor(np.random.default_rng(3).integers(
             0, cfg.vocab, (1, check_len)), device=dev)
-        out = lm.forward(cfg, params, {"tokens": tokens})
+        extra = {} if cfg.family == "vlm" else family_inputs(cfg, 1, gen, dev)
+        out = lm.forward(cfg, params, {"tokens": tokens, **extra})
         full = out[0] if cfg.family == "moe" else out
         require(bool(torch.isfinite(full).all()), f"{label}: non-finite forward logits")
         cache = materialize(None, lm.cache_template(cfg, 1, check_len),
                             dtype_override="float32", device=dev)
+        if cfg.family == "audio":
+            fill_cross_cache(cfg, params, cache, extra["frames"])
         step = make_decode_step(cfg)
         err = 0.0
         for pos in range(check_len):
@@ -916,7 +999,7 @@ def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=
             err = max(err, scaled_err(logits, full[:, pos]))
         tol = LM_MODEL_TOL[cfg.family]
         require(err <= tol, f"{label}: decode vs forward err {err} over {tol}")
-        del out, full, cache
+        del out, full, cache, extra
 
         # where a decode step's time goes: 8 steps of a batch at the serving
         # batch size, profiled; set against the unprofiled step p50
@@ -937,7 +1020,7 @@ def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=
         # one long prompt through the prefill step: the first call (the
         # allocator grows to the prompt's activations), then a warm one
         prompt = {"tokens": torch.as_tensor(np.random.default_rng(4).integers(
-            0, cfg.vocab, (1, prefill_len)), device=dev)}
+            0, cfg.vocab, (1, prefill_len)), device=dev), **family_inputs(cfg, 1, gen, dev)}
         prefill = make_prefill_step(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -953,6 +1036,7 @@ def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=
         prefill_prof = device_breakdown(lambda: prefill(params, prompt))
         busy = (None if decode_prof is None
                 else decode_prof["device_ms"] / 1e3 / res["step_p50_s"])
+        flash_launches[label] = FK.LAUNCHES["flash_attention"] - launches0
         emit(dict(phase="lm_serving", model=label, family=cfg.family,
                   layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
                   param_gb=4 * n_params / 1e9, init_s=init_s,
@@ -960,12 +1044,16 @@ def lm_serving_phase(models, dev, *, prefill_len=PREFILL_LEN, requests=8, batch=
                   serve_s=res["seconds"], tokens_per_s=res["tokens_per_s"],
                   decode_steps=len(res["step_s"]), step_p50_s=res["step_p50_s"],
                   decode_vs_forward_err=err, tol=tol, prefill_tokens=prefill_len,
+                  prefill_extra={k: list(v.shape) for k, v in prompt.items()
+                                 if k != "tokens"},
                   prefill_first_s=prefill_s[0], prefill_s=prefill_s[1],
                   prefill_peak_mem_gb=prefill_mem_gb,
+                  flash_launches=flash_launches[label],
                   decode_device_busy_share=busy, decode_profile=decode_prof,
                   prefill_profile=prefill_prof))
         del params, nxt, prompt
         torch.cuda.empty_cache()
+    return flash_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1427,18 +1515,35 @@ def main() -> int:
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched on the main path")
 
-    # 6. LM kernel checks
-    dense_cfg = get_config("qwen2-1.5b")
-    moe_cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=2)
-    lm_rows = lm_kernel_checks(dense_cfg, moe_cfg, dev)
+    # 6. LM kernel checks, at the shapes of phase 7's models: full width,
+    # DeepSeek-V2 and Qwen2-VL cut to 2 layers (80 layers of the VLM would
+    # not fit the card in fp32)
+    lm_cfgs = {"dense": get_config("qwen2-1.5b"),
+               "moe": dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=2),
+               "vlm": dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=2),
+               "audio": get_config("whisper-large-v3"),
+               "ssm": get_config("xlstm-1.3b"),
+               "hybrid": get_config("zamba2-2.7b")}
+    lm_rows = lm_kernel_checks(lm_cfgs, dev)
 
-    # 7. LM serving, with launch counts
+    # 7. LM serving of all six families, with launch counts; the flash
+    # kernel must launch on each family that attends (ssm has no attention)
     FK.reset_launches()
     GK.reset_launches()
-    lm_serving_phase([("qwen2-1.5b", dense_cfg), ("deepseek-v2-236b_x2", moe_cfg)], dev)
+    lm_models = [("qwen2-1.5b", lm_cfgs["dense"], PREFILL_LEN),
+                 ("deepseek-v2-236b_x2", lm_cfgs["moe"], PREFILL_LEN),
+                 ("qwen2-vl-72b_x2", lm_cfgs["vlm"], PREFILL_LEN),
+                 ("whisper-large-v3", lm_cfgs["audio"], WHISPER_DECODER_LEN),
+                 ("xlstm-1.3b", lm_cfgs["ssm"], XLSTM_PREFILL_LEN),
+                 ("zamba2-2.7b", lm_cfgs["hybrid"], PREFILL_LEN)]
+    flash_by_model = lm_serving_phase(lm_models, dev)
     lm_launches = {**FK.LAUNCHES, **GK.LAUNCHES}
+    emit(dict(phase="lm_launches", **lm_launches, flash_by_model=flash_by_model))
     for name, n in lm_launches.items():
         require(n > 0, f"kernel {name} was not launched on the LM serving path")
+    for label, cfg, _ in lm_models:
+        require(flash_by_model[label] > 0 or cfg.family == "ssm",
+                f"the flash kernel was not launched serving {label}")
     launches.update(lm_launches)
 
     # 8. the tiled interpreter on the serving batch, with launch counts

@@ -3,10 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --reduced \
       --requests 8 --max-new 16 [--device cpu]
 
-The loop of ``repro.launch.serve``: requests with different prompt lengths
-are padded into a fixed decode batch, prefilled by teacher-forcing the
-prompts through ``decode_step`` (filling the KV cache), then decoded
-greedily.  Runs on ``cuda`` unless ``--device`` names another device.
+The loop of ``repro.launch.serve``, for any of the six LM families:
+requests with different prompt lengths are padded into a fixed decode
+batch, prefilled by teacher-forcing the prompts through ``decode_step``
+(filling the batch's cache from ``lm.cache_template``: KV caches, or the
+ssm / hybrid recurrent states; audio's cross cache stays zeros, as in the
+reference), then decoded greedily.  Runs on ``cuda`` unless ``--device``
+names another device.
 """
 from __future__ import annotations
 

@@ -7,7 +7,10 @@ from ..models import lm
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """``prefill_step(params, batch)`` -> next-token logits (B, vocab)."""
+    """``prefill_step(params, batch)`` -> next-token logits (B, vocab).
+    ``batch`` goes to ``lm.forward`` as it is: ``tokens``, and
+    ``patch_embeds`` (vlm) or ``frames`` (audio) where the family takes
+    them."""
     def prefill_step(params, batch):
         out = lm.forward(cfg, params, batch)
         logits = out[0] if cfg.family == "moe" else out

@@ -1,4 +1,5 @@
-"""Attention blocks: GQA (dense family) and MLA (DeepSeek family).
+"""Attention blocks: GQA (dense, vlm, audio and hybrid families) and MLA
+(DeepSeek family).
 
 Ports ``repro.models.attention`` for one device.  Prefill runs the blocked
 flash path (``kernels/flash_attention``); decode writes the step's K/V (or,
@@ -49,38 +50,53 @@ def gqa_cache_template(cfg: ArchConfig, batch: int, max_len: int) -> Dict:
     }
 
 
+def _write(buf: torch.Tensor, val: torch.Tensor, i: int) -> None:
+    """``buf[:, i:i + S] = val`` with ``dynamic_update_slice``'s clamp of the
+    start index to [0, len - S]."""
+    S = val.shape[1]
+    i = min(max(i, 0), buf.shape[1] - S)
+    buf[:, i:i + S] = val.to(buf.dtype)
+
+
 def gqa_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
-                  cache: Optional[Dict] = None,
-                  cache_index: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x: (B, S, d).  Without a cache: causal self-attention over x.  With
-    ``cache`` + ``cache_index``: decode (writes K/V at cache_index, attends
-    the filled prefix)."""
+                  cache: Optional[Dict] = None, cache_index: Optional[int] = None,
+                  causal: bool = True, kv_x: Optional[torch.Tensor] = None,
+                  use_rope: bool = True) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (B, S, d).  Without a cache: self-attention over x (``causal`` or
+    not), or cross-attention with K/V projected from ``kv_x`` (B, Skv, d)
+    (the whisper decoder).  With ``cache`` + ``cache_index``: decode (writes
+    K/V at cache_index, attends the filled prefix).  ``use_rope=False``
+    skips the rotation (whisper's sinusoidal positions)."""
     B, S, d = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, K, Dh)
-    v = v.reshape(B, S, K, Dh)
+    k = k.reshape(B, Skv, K, Dh)
+    v = v.reshape(B, Skv, K, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    cos, sin = rope_freqs(Dh, cfg.rope_theta, positions)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope:
+        cos, sin = rope_freqs(Dh, cfg.rope_theta, positions)
+        q = apply_rope(q, cos, sin)
+        if kv_x is None and S == Skv:
+            k = apply_rope(k, cos, sin)
 
     if cache is not None:
         i = int(cache_index)
-        cache["k"][:, i:i + S] = k.to(cache["k"].dtype)
-        cache["v"][:, i:i + S] = v.to(cache["v"].dtype)
+        _write(cache["k"], k, i)
+        _write(cache["v"], v, i)
         kv_len = torch.full((B,), i + S, dtype=torch.int32, device=x.device)
         o = flash_attention(q, cache["k"], cache["v"], causal=False,
                             window=cfg.attn_window, kv_len=kv_len)
     else:
-        o = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
+        o = flash_attention(q, k, v, causal=causal, window=cfg.attn_window)
     o = o.reshape(B, S, H * Dh)
     return o @ p["wo"], cache
 
@@ -150,8 +166,8 @@ def mla_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions: torch.Te
 
     # ---- absorbed decode ---------------------------------------------------
     i = int(cache_index)
-    cache["ckv"][:, i:i + S] = ckv.to(cache["ckv"].dtype)
-    cache["krope"][:, i:i + S] = k_rope.to(cache["krope"].dtype)
+    _write(cache["ckv"], ckv, i)
+    _write(cache["krope"], k_rope, i)
     ckv_c, kr_c = cache["ckv"].float(), cache["krope"].float()
     kv_len = i + S
     wuk = p["wuk"].reshape(m.kv_lora, H, m.qk_nope).float()

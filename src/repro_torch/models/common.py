@@ -132,6 +132,16 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def apply_mrope(x, positions, sections: Tuple[int, int, int], theta: float):
+    """Multimodal RoPE (Qwen2-VL) as ``repro.models.common.apply_mrope``
+    defines it: the modality frontend is a stub, so the (t, h, w) position
+    streams all carry the text position and the rotation is 1-D RoPE;
+    ``sections`` is not read.  Nothing calls it, as in the reference, whose
+    ``gqa_attention`` applies 1-D RoPE to the vlm family too."""
+    cos, sin = rope_freqs(x.shape[-1], theta, positions)
+    return apply_rope(x, cos, sin)
+
+
 def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     pos = np.arange(n)[:, None]
     i = np.arange(d // 2)[None, :]

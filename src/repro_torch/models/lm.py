@@ -1,40 +1,53 @@
-"""Full-model assembly for the LM families the port serves.
+"""Full-model assembly for the six LM families.
 
-Ports ``repro.models.lm`` for one device and two families:
+Ports ``repro.models.lm`` for one device:
 
-  dense  — pre-norm GQA transformer (qk-norm / qkv-bias / parallel-block /
-           tied-embedding options);
-  moe    — DeepSeek: MLA attention + (first_dense dense layers, then routed
-           MoE layers with shared experts).
+  dense | vlm  — pre-norm GQA transformer (qk-norm / qkv-bias / parallel-block
+                 / tied-embedding options); vlm prepends stub patch
+                 embeddings (``batch["patch_embeds"]``) and returns the
+                 logits of the text positions;
+  moe          — DeepSeek: MLA attention + (first_dense dense layers, then
+                 routed MoE layers with shared experts);
+  audio        — Whisper encoder-decoder; the conv/mel frontend is a stub
+                 (frame embeddings arrive as ``batch["frames"]``);
+  ssm          — xLSTM super-blocks (slstm_every - 1 mLSTM + 1 sLSTM);
+  hybrid       — Zamba2 super-blocks (shared_attn_every Mamba2 blocks + one
+                 weight-shared attention/MLP block, whose decode cache is a
+                 ring buffer of the attention window).
 
 Parameters are the reference's tree — nested dicts of tensors, each layer
-stack with a leading layer axis — so weights carry across name for name
+stack with a leading layer axis (the ssm and hybrid super-blocks nest a
+second stack) — so weights carry across name for name
 (:func:`repro_torch.convert.lm_params_from_reference`).  The reference's
 ``lax.scan`` over a stack is a Python loop over its layer axis here, and
-``jax.checkpoint`` is dropped (inference only).  :class:`LM` is a thin
-``nn.Module`` that registers the tensors and calls these functions.  The
-vlm, audio, ssm and hybrid families raise ``NotImplementedError``.
+``jax.checkpoint`` is dropped (inference only).  Decode updates the cache
+in place and returns it: KV caches by slice writes, recurrent states by
+copying each block's new state into its cache views.  :class:`LM` is a
+thin ``nn.Module`` that registers the tensors and calls these functions.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..kernels.flash_attention.ops import flash_attention
 from . import attention as A
+from . import mamba2 as M2
 from . import moe as MOE
-from .common import layer, leaf, rms_norm, stack_templates, tree_items
+from . import xlstm as XL
+from .common import (layer, layer_norm, leaf, rms_norm, sinusoidal_positions,
+                     stack_templates, tree_items)
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
+VLM_PATCHES = 256  # stub vision prefix length for the vlm family
 
 
 def _require_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP A.9: vlm, audio, ssm and hybrid)")
+        raise ValueError(f"{cfg.name}: unknown LM family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +76,38 @@ def _mla_block_template(cfg: ArchConfig, kind: str) -> Dict:
     return t
 
 
+def _ln_template(d: int) -> Dict:
+    return {"w": leaf((d,), (None,), init="ones"), "b": leaf((d,), (None,), init="zeros")}
+
+
+def _whisper_block_template(cfg: ArchConfig, cross: bool) -> Dict:
+    d = cfg.d_model
+    t = {"ln1": _ln_template(d), "attn": A.gqa_template(cfg), "ln3": _ln_template(d),
+         "ffn": MOE.gelu_ffn_template(cfg)}
+    if cross:
+        t["ln2"] = _ln_template(d)
+        t["xattn"] = A.gqa_template(cfg)
+    return t
+
+
+def _xlstm_super_template(cfg: ArchConfig) -> Dict:
+    k = cfg.xlstm.slstm_every
+    return {
+        "mlstm": stack_templates({"ln": leaf((cfg.d_model,), (None,), init="ones"),
+                                  "cell": XL.mlstm_template(cfg)}, k - 1),
+        "slstm": {"ln": leaf((cfg.d_model,), (None,), init="ones"),
+                  "cell": XL.slstm_template(cfg)},
+    }
+
+
+def _zamba_super_template(cfg: ArchConfig) -> Dict:
+    return {
+        "mamba": stack_templates({"ln": leaf((cfg.d_model,), (None,), init="ones"),
+                                  "cell": M2.mamba2_template(cfg)},
+                                 cfg.shared_attn_every),
+    }
+
+
 def model_template(cfg: ArchConfig) -> Dict:
     _require_family(cfg)
     d, V = cfg.d_model, cfg.vocab
@@ -70,29 +115,69 @@ def model_template(cfg: ArchConfig) -> Dict:
     if not cfg.tie_embeddings:
         t["head"] = leaf((d, V), (None, "model"), scale=0.02)
     t["ln_f"] = leaf((d,), (None,), init="ones")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         t["layers"] = stack_templates(_dense_block_template(cfg), cfg.n_layers)
-    else:
+    elif cfg.family == "moe":
         mo = cfg.moe
         if mo.first_dense:
             t["dense_layers"] = stack_templates(_mla_block_template(cfg, "dense"),
                                                 mo.first_dense)
         t["layers"] = stack_templates(_mla_block_template(cfg, "moe"),
                                       cfg.n_layers - mo.first_dense)
+    elif cfg.family == "audio":
+        t["enc_layers"] = stack_templates(_whisper_block_template(cfg, cross=False),
+                                          cfg.n_encoder_layers)
+        t["layers"] = stack_templates(_whisper_block_template(cfg, cross=True),
+                                      cfg.n_layers)
+        t["ln_enc"] = _ln_template(d)
+        t["ln_f"] = _ln_template(d)
+    elif cfg.family == "ssm":
+        t["layers"] = stack_templates(_xlstm_super_template(cfg),
+                                      cfg.n_layers // cfg.xlstm.slstm_every)
+    else:  # hybrid
+        t["layers"] = stack_templates(_zamba_super_template(cfg),
+                                      cfg.n_layers // cfg.shared_attn_every)
+        t["shared"] = _dense_block_template(cfg)
     return t
 
 
 def cache_template(cfg: ArchConfig, batch: int, max_len: int) -> Dict:
     _require_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"layers": stack_templates(A.gqa_cache_template(cfg, batch, max_len),
                                           cfg.n_layers)}
-    t = {"layers": stack_templates(A.mla_cache_template(cfg, batch, max_len),
-                                   cfg.n_layers - cfg.moe.first_dense)}
-    if cfg.moe.first_dense:
-        t["dense_layers"] = stack_templates(
-            A.mla_cache_template(cfg, batch, max_len), cfg.moe.first_dense)
-    return t
+    if cfg.family == "moe":
+        t = {"layers": stack_templates(A.mla_cache_template(cfg, batch, max_len),
+                                       cfg.n_layers - cfg.moe.first_dense)}
+        if cfg.moe.first_dense:
+            t["dense_layers"] = stack_templates(
+                A.mla_cache_template(cfg, batch, max_len), cfg.moe.first_dense)
+        return t
+    if cfg.family == "audio":
+        return {
+            "layers": stack_templates(A.gqa_cache_template(cfg, batch, max_len),
+                                      cfg.n_layers),
+            # cross-attention K/V of the encoder output; nothing in the
+            # serving loop fills it (zeros), as in the reference
+            "cross": stack_templates(A.gqa_cache_template(cfg, batch, cfg.enc_len),
+                                     cfg.n_layers),
+        }
+    if cfg.family == "ssm":
+        return {"layers": stack_templates({
+            "mlstm": stack_templates(XL.mlstm_state_template(cfg, batch),
+                                     cfg.xlstm.slstm_every - 1),
+            "slstm": XL.slstm_state_template(cfg, batch),
+        }, cfg.n_layers // cfg.xlstm.slstm_every)}
+    n_super = cfg.n_layers // cfg.shared_attn_every
+    win = min(cfg.attn_window or max_len, max_len)
+    return {
+        "layers": stack_templates(
+            {"mamba": stack_templates(M2.mamba2_state_template(cfg, batch),
+                                      cfg.shared_attn_every)}, n_super),
+        # the weight-shared attention block: one ring-buffer cache of the
+        # window per application site
+        "shared": stack_templates(A.gqa_cache_template(cfg, batch, win), n_super),
+    }
 
 
 def _n_layers(stack: Dict) -> int:
@@ -130,57 +215,184 @@ def _mla_block(cfg, kind, p, h, positions, cache=None, pos=None, token_chunks=4)
     return h + MOE.dense_ffn(p["ffn"], hn), None
 
 
+def _ln(x, p, eps):
+    return layer_norm(x, p["w"], p["b"], eps)
+
+
+def _whisper_block(cfg, p, h, positions, *, causal=True, enc=None, cache=None,
+                   cross=None, pos=None):
+    """A pre-LN whisper block.  An encoder block (no ``xattn``) attends h;
+    a decoder block attends h causally (or through its self cache at
+    ``pos``), then cross-attends the encoder output ``enc`` (prefill) or
+    the cross cache's K/V (decode)."""
+    eps = cfg.norm_eps
+    ao, _ = A.gqa_attention(cfg, p["attn"], _ln(h, p["ln1"], eps), positions,
+                            cache=cache, cache_index=pos, causal=causal, use_rope=False)
+    h = h + ao
+    if "xattn" in p:
+        hn = _ln(h, p["ln2"], eps)
+        if cross is None:
+            co, _ = A.gqa_attention(cfg, p["xattn"], hn, positions, causal=False,
+                                    kv_x=enc, use_rope=False)
+        else:
+            # q without bias against the cached encoder K/V, as the reference
+            B, S, _ = hn.shape
+            q = (hn @ p["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.hdim)
+            co = flash_attention(q, cross["k"], cross["v"], causal=False)
+            co = co.reshape(B, S, -1) @ p["xattn"]["wo"]
+        h = h + co
+    return h + MOE.gelu_ffn(p["ffn"], _ln(h, p["ln3"], eps))
+
+
+def _set_state(state: Optional[Dict], new: Optional[Dict]) -> None:
+    """Copy a block's new recurrent state into its cache views."""
+    if state is not None:
+        for k, t in new.items():
+            state[k].copy_(t)
+
+
+def _xlstm_super(cfg, p, h, state=None):
+    """slstm_every - 1 mLSTM blocks, then one sLSTM block, each residual;
+    with ``state`` (decode), every block's state is updated in place."""
+    eps = cfg.norm_eps
+    for j in range(_n_layers(p["mlstm"])):
+        pj = layer(p["mlstm"], j)
+        sj = None if state is None else layer(state["mlstm"], j)
+        y, new = XL.mlstm_block(cfg, pj["cell"], rms_norm(h, pj["ln"], eps), state=sj)
+        _set_state(sj, new)
+        h = h + y
+    ss = None if state is None else state["slstm"]
+    y, new = XL.slstm_block(cfg, p["slstm"]["cell"], rms_norm(h, p["slstm"]["ln"], eps),
+                            state=ss)
+    _set_state(ss, new)
+    return h + y
+
+
+def _zamba_super(cfg, p, shared, h, positions, state=None, attn_cache=None, wpos=None):
+    """shared_attn_every Mamba2 blocks, each residual, then the shared
+    attention + MLP block; decode passes the Mamba2 states (updated in
+    place) and the shared block's ring cache with its slot ``wpos``."""
+    for j in range(_n_layers(p["mamba"])):
+        pj = layer(p["mamba"], j)
+        sj = None if state is None else layer(state["mamba"], j)
+        y, new = M2.mamba2_block(cfg, pj["cell"], rms_norm(h, pj["ln"], cfg.norm_eps),
+                                 state=sj)
+        _set_state(sj, new)
+        h = h + y
+    return _dense_block(cfg, shared, h, positions, attn_cache, wpos)
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill) and decode
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
+def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over frame embeddings (B, T, d), the stub
+    frontend's output: sinusoidal positions, the non-causal blocks, the
+    final layer norm.  Part of :func:`forward` for the audio family."""
+    enc = frames.to(params["embed"].dtype)
+    T = enc.shape[1]
+    enc = enc + sinusoidal_positions(T, cfg.d_model, device=enc.device).to(enc.dtype)
+    positions = torch.arange(T, device=enc.device)
+    for i in range(_n_layers(params["enc_layers"])):
+        enc = _whisper_block(cfg, layer(params["enc_layers"], i), enc, positions,
+                             causal=False)
+    return _ln(enc, params["ln_enc"], cfg.norm_eps)
+
+
+@torch.no_grad()
 def forward(cfg: ArchConfig, params: Dict, batch: Dict
             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Logits (B, S, vocab) for prefill; the moe family returns
-    (logits, summed router aux loss) as the reference does."""
+    """Logits (B, S_tok, vocab) for prefill; the moe family returns
+    (logits, summed router aux loss) as the reference does.  ``batch``
+    holds ``tokens`` and, for vlm, optionally ``patch_embeds`` (B, P, d);
+    for audio, ``frames`` (B, T, d)."""
     _require_family(cfg)
+    fam = cfg.family
     tokens = batch["tokens"]
+    S_tok = tokens.shape[1]
     x = params["embed"][tokens]
-    positions = torch.arange(x.shape[1], device=x.device)
+    if fam == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
 
-    if cfg.family == "dense":
+    if fam in ("dense", "vlm"):
         for i in range(_n_layers(params["layers"])):
             x = _dense_block(cfg, layer(params["layers"], i), x, positions)
-        return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
+        logits = _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
+        return logits[:, -S_tok:] if fam == "vlm" else logits
 
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for name, kind in (("dense_layers", "dense"), ("layers", "moe")):
-        if name not in params:
-            continue
-        for i in range(_n_layers(params[name])):
-            x, aux = _mla_block(cfg, kind, layer(params[name], i), x, positions)
-            if aux is not None:
-                aux_total = aux_total + aux
-    return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux_total
+    if fam == "moe":
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for name, kind in (("dense_layers", "dense"), ("layers", "moe")):
+            if name not in params:
+                continue
+            for i in range(_n_layers(params[name])):
+                x, aux = _mla_block(cfg, kind, layer(params[name], i), x, positions)
+                if aux is not None:
+                    aux_total = aux_total + aux
+        return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux_total
+
+    if fam == "audio":
+        enc = encode(cfg, params, batch["frames"])
+        x = x + sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)
+        for i in range(_n_layers(params["layers"])):
+            x = _whisper_block(cfg, layer(params["layers"], i), x, positions, enc=enc)
+        return _logits(cfg, params, _ln(x, params["ln_f"], cfg.norm_eps))
+
+    for i in range(_n_layers(params["layers"])):
+        p = layer(params["layers"], i)
+        x = (_xlstm_super(cfg, p, x) if fam == "ssm"
+             else _zamba_super(cfg, p, params["shared"], x, positions))
+    return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor,
                 pos: int) -> Tuple[torch.Tensor, Dict]:
-    """One decode step.  tokens: (B, 1); pos: index into the cache.  The
-    cache is updated in place and returned."""
+    """One decode step.  tokens: (B, 1); pos: the position in the sequence
+    (the hybrid family writes its attention cache at ``pos`` mod the
+    window).  The cache is updated in place and returned."""
     _require_family(cfg)
+    fam = cfg.family
     pos = int(pos)
     x = params["embed"][tokens]
     positions = pos + torch.arange(tokens.shape[1], device=x.device)
 
-    if cfg.family == "dense":
+    if fam in ("dense", "vlm"):
         for i in range(_n_layers(params["layers"])):
             x = _dense_block(cfg, layer(params["layers"], i), x, positions,
                              layer(cache["layers"], i), pos)
-    else:
+    elif fam == "moe":
         for name, kind in (("dense_layers", "dense"), ("layers", "moe")):
             if name not in params:
                 continue
             for i in range(_n_layers(params[name])):
                 x, _ = _mla_block(cfg, kind, layer(params[name], i), x, positions,
                                   layer(cache[name], i), pos, token_chunks=1)
+    elif fam == "audio":
+        max_len = cache["layers"]["k"].shape[2]
+        x = x + sinusoidal_positions(max_len, cfg.d_model)[pos].to(x.device, x.dtype)
+        for i in range(_n_layers(params["layers"])):
+            x = _whisper_block(cfg, layer(params["layers"], i), x, positions,
+                               cache=layer(cache["layers"], i),
+                               cross=layer(cache["cross"], i), pos=pos)
+        return _logits(cfg, params, _ln(x, params["ln_f"], cfg.norm_eps)), cache
+    elif fam == "ssm":
+        for i in range(_n_layers(params["layers"])):
+            x = _xlstm_super(cfg, layer(params["layers"], i), x, layer(cache["layers"], i))
+    else:
+        # the shared block's cache is a ring buffer of the window: the step
+        # writes slot pos mod win and attends slots 0..that slot (kv_len),
+        # so once the ring has wrapped the older slots past it drop out, as
+        # in the reference (ROADMAP C.3)
+        wpos = pos % cache["shared"]["k"].shape[2]
+        for i in range(_n_layers(params["layers"])):
+            x = _zamba_super(cfg, layer(params["layers"], i), params["shared"], x,
+                             positions, layer(cache["layers"], i),
+                             layer(cache["shared"], i), wpos)
     return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), cache
 
 
@@ -217,8 +429,9 @@ class LM(nn.Module):
             node[path[-1]] = getattr(mod, path[-1])
         return out
 
-    def forward(self, tokens: torch.Tensor):
-        return forward(self.cfg, self.params(), {"tokens": tokens})
+    def forward(self, tokens: torch.Tensor, **inputs):
+        """``inputs``: ``patch_embeds`` (vlm) or ``frames`` (audio)."""
+        return forward(self.cfg, self.params(), {"tokens": tokens, **inputs})
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor, pos: int):
         return decode_step(self.cfg, self.params(), cache, tokens, pos)

@@ -34,9 +34,12 @@ from repro_torch.models import common as tcommon
 from repro_torch.models import moe as tmoe
 from repro_torch.models.common import materialize, tree_items
 
+# all six families; tests/test_torch_lm_families.py holds the vlm, audio,
+# ssm and hybrid ones to their own inputs (patch embeddings, a non-zero
+# cross cache, a wrapped ring) and their blocks' pieces
 ARCHS = ["smollm-135m", "qwen2-1.5b", "qwen3-32b", "command-r-35b",
-         "deepseek-v2-236b", "deepseek-v3-671b"]
-OTHER_FAMILIES = ["qwen2-vl-72b", "whisper-large-v3", "xlstm-1.3b", "zamba2-2.7b"]
+         "deepseek-v2-236b", "deepseek-v3-671b", "qwen2-vl-72b", "whisper-large-v3",
+         "xlstm-1.3b", "zamba2-2.7b"]
 TOL = 1e-4   # x max(1, |ref|)
 
 
@@ -68,6 +71,14 @@ def _weights(cfg, seed=0):
     return jp, lm_params_from_reference(np_tree, cfg, device="cpu")
 
 
+def _frames(cfg, B, seed=4):
+    """The audio family's seeded frame embeddings (none for the others)."""
+    if cfg.family != "audio":
+        return {}
+    rng = np.random.default_rng(seed)
+    return {"frames": rng.standard_normal((B, cfg.enc_len, cfg.d_model)).astype(np.float32)}
+
+
 def _reference_decode(cfg, mesh, jp, tokens, max_len):
     """Teacher-forced reference decode: logits (B, S, vocab)."""
     B, S = tokens.shape
@@ -89,10 +100,13 @@ def test_forward_and_decode_match_reference(arch, mesh):
     jp, tp = _weights(jcfg)
     B, S = 2, 8
     tokens = np.random.default_rng(3).integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    extra = _frames(cfg, B)
 
-    j_out = jax.jit(lambda p, t: jlm.forward(jcfg, p, {"tokens": t}, mesh=mesh))(
-        jp, jnp.asarray(tokens))
-    t_out = lm.forward(cfg, tp, {"tokens": torch.as_tensor(tokens, dtype=torch.int64)})
+    j_out = jax.jit(lambda p, t, e: jlm.forward(jcfg, p, {"tokens": t, **e}, mesh=mesh))(
+        jp, jnp.asarray(tokens), {k: jnp.asarray(v) for k, v in extra.items()})
+    batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64),
+             **{k: torch.as_tensor(v) for k, v in extra.items()}}
+    t_out = lm.forward(cfg, tp, batch)
     if cfg.family == "moe":
         (j_logits, j_aux), (t_logits, t_aux) = j_out, t_out
         _close(t_aux, j_aux)
@@ -111,7 +125,7 @@ def test_forward_and_decode_match_reference(arch, mesh):
         logits, cache = step(tp, cache, tok[:, pos:pos + 1], pos)
         _close(logits, want[:, pos])
     # and the prefill step's next-token logits are the forward's last row
-    _close(make_prefill_step(cfg)(tp, {"tokens": tok}), t_logits[:, -1])
+    _close(make_prefill_step(cfg)(tp, batch), t_logits[:, -1])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v2-236b"])
@@ -159,17 +173,21 @@ def test_serve_requests_matches_reference_loop(arch, mesh):
     assert len(res["step_s"]) == n_steps and res["tokens_per_s"] > 0
 
 
-def test_lm_module_matches_functions():
-    cfg = reduced(get_config("deepseek-v3-671b"))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_module_matches_functions(arch):
+    cfg = reduced(get_config(arch))
     params = materialize(torch.Generator().manual_seed(0), lm.model_template(cfg),
                          dtype_override="float32", device="cpu")
     model = lm.LM(cfg, params)
     assert not any(p.requires_grad for p in model.parameters())
     assert len(model.state_dict()) == len(list(tree_items(params)))
     tokens = torch.randint(0, cfg.vocab, (2, 4), generator=torch.Generator().manual_seed(1))
-    logits, aux = model(tokens)
-    want, want_aux = lm.forward(cfg, params, {"tokens": tokens})
-    torch.testing.assert_close(logits, want, rtol=0, atol=0)
+    extra = {k: torch.as_tensor(v) for k, v in _frames(cfg, 2).items()}
+    got, want = model(tokens, **extra), lm.forward(cfg, params, {"tokens": tokens, **extra})
+    if cfg.family == "moe":
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        got, want = got[0], want[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
     cache = materialize(None, lm.cache_template(cfg, 2, 4), dtype_override="float32",
                         device="cpu")
     got, _ = model.decode_step(cache, tokens[:, :1], 0)
@@ -205,24 +223,29 @@ def test_lm_entry_points_run_on_cuda_unless_told_otherwise():
         serve_requests(cfg, {}, [np.arange(4)], batch=1, max_prompt=4, max_new=1)
 
 
-def test_lm_params_from_reference_checks_names_and_shapes():
-    jcfg = j_reduced(j_get_config("smollm-135m"))
-    cfg = reduced(get_config("smollm-135m"))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_params_from_reference_checks_names_and_shapes(arch):
+    """A wrong shape or a missing leaf raises, at the top of the tree and
+    at its deepest leaf (inside the ssm / hybrid super-block stacks)."""
+    jcfg = j_reduced(j_get_config(arch))
+    cfg = reduced(get_config(arch))
     np_tree = jax.tree.map(np.array, j_materialize(
         jax.random.PRNGKey(0), jlm.model_template(jcfg), dtype_override="float32"))
-    np_tree["ln_f"] = np.ones(3, np.float32)
-    with pytest.raises(ValueError, match="shape"):
-        lm_params_from_reference(np_tree, cfg, device="cpu")
-    del np_tree["ln_f"]
-    with pytest.raises(ValueError, match="missing"):
-        lm_params_from_reference(np_tree, cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch", OTHER_FAMILIES)
-def test_unported_families_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        lm.model_template(cfg)
+    lm_params_from_reference(np_tree, cfg, device="cpu")
+    deepest = max((path for path, _ in tree_items(np_tree)), key=len)
+    for path in (("embed",), deepest):
+        *parents, name = path
+        node = np_tree
+        for k in parents:
+            node = node[k]
+        keep = node[name]
+        node[name] = np.ones(3, np.float32)
+        with pytest.raises(ValueError, match="shape"):
+            lm_params_from_reference(np_tree, cfg, device="cpu")
+        del node[name]
+        with pytest.raises(ValueError, match="missing"):
+            lm_params_from_reference(np_tree, cfg, device="cpu")
+        node[name] = keep
 
 
 def test_configs_are_the_references():

@@ -70,6 +70,32 @@ def test_flash_plain_vs_scan_and_pallas(B, Sq, Sk, H, K, D, causal, window, rng)
     np.testing.assert_allclose(got, np.asarray(pallas), **FLASH_TOL)
 
 
+# the families' attention shapes, cut down (B, Sq, Sk, H, K, D, causal,
+# window, kv_len): whisper's cross-attention (Sq != Sk, not causal, a key
+# count off the tiles), head dim 80 (zamba2) with a window, and a decode
+# step on a ring cache with per-row kv_len and a window wider than it
+FAMILY_FLASH = {"cross": (1, 24, 75, 4, 4, 16, False, None, None),
+                "d80_window": (1, 64, 64, 4, 4, 80, True, 48, None),
+                "ring_decode": (2, 1, 40, 4, 4, 80, False, 4096, [40, 17])}
+
+
+@pytest.mark.parametrize("case", list(FAMILY_FLASH))
+def test_flash_family_shapes_plain_vs_scan_and_pallas(case, rng):
+    B, Sq, Sk, H, K, D, causal, window, kv = FAMILY_FLASH[case]
+    q, k, v = _qkv(rng, B, Sq, Sk, H, K, D)
+    kw = dict(causal=causal, window=window, block_k=32)
+    kv_t = None if kv is None else torch.tensor(kv, dtype=torch.int32)
+    kv_j = None if kv is None else jnp.asarray(kv, jnp.int32)
+    got = t_flash(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                  kv_len=kv_t, **kw).numpy()
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len=kv_j, **kw)
+    np.testing.assert_allclose(got, np.asarray(want), **FLASH_TOL)
+    if kv is None:   # the Pallas kernel takes no kv_len (kernel.py:88)
+        pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        block_q=16, **kw)
+        np.testing.assert_allclose(got, np.asarray(pallas), **FLASH_TOL)
+
+
 @pytest.mark.parametrize("block_k", [8, 512])
 def test_flash_mla_value_dim(block_k, rng):
     """MLA: qk head dim 48 against a value head dim of 32."""
@@ -194,14 +220,23 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
 
 
 # the flash kernel's tile configurations at the shapes of chip_smoke.py's
-# phases 6 and 7 (B, Sq, D, Dv): MLA and GQA prefill, the ragged and
-# head-dim-256 checks, a decode step, the 8-token forward check
+# phases 6 and 7 (Sq, D, Dv): MLA and GQA prefill, the ragged and
+# head-dim-256 checks, a decode step, the 8-token forward check; the vlm
+# prefill (256 patches + 4,096 tokens), whisper's encoder, cross-attention
+# and cross decode (head dim 64), zamba2's prefill and ring decode (head
+# dim 80: one full 64-dim K chunk and a 16-dim one, Dv in two column groups)
 PATH_FLASH = {"mla_prefill": ((4096, 192, 128), (8, 2, 187_392)),
               "gqa_prefill": ((4096, 128, 128), (8, 2, 154_624)),
               "gqa_ragged": ((1000, 128, 128), (8, 2, 154_624)),
               "window_d256": ((65, 256, 256), (4, 4, 136_192)),
               "gqa_decode": ((1, 128, 128), (1, 2, 65_024)),
-              "forward_check": ((8, 192, 128), (1, 2, 69_120))}
+              "forward_check": ((8, 192, 128), (1, 2, 69_120)),
+              "vlm_prefill": ((4352, 128, 128), (8, 2, 154_624)),
+              "whisper_encoder": ((1500, 64, 64), (8, 1, 121_856)),
+              "whisper_cross": ((448, 64, 64), (8, 1, 121_856)),
+              "whisper_cross_decode": ((1, 64, 64), (1, 1, 60_928)),
+              "zamba_prefill": ((4096, 80, 80), (8, 2, 130_048)),
+              "zamba_ring_decode": ((1, 80, 80), (1, 2, 61_952))}
 
 
 @pytest.mark.parametrize("case", list(PATH_FLASH))
