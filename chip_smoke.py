@@ -48,23 +48,36 @@ Phases, each printing one JSON line or more:
    phase 3; the grouped FFN also at the off-path shapes of
    ``FFN_OFF_PATH``; elementwise limits scaled by each sum's rounding
    magnitude (see ``LM_KERNEL_TOL``); one flash call and one grouped-FFN
-   call with host syncs made errors;
-7. LM serving, all six families at full width with random fp32 weights
-   from a seed: qwen2-1.5b (all 28 layers), deepseek-v2-236b (depth cut to
-   2 layers: the leading dense layer and one MoE layer), qwen2-vl-72b
-   (depth cut to 2 layers), whisper-large-v3 (32 + 32 layers), xlstm-1.3b
-   (48) and zamba2-2.7b (54); ``serve_requests`` with
+   call with host syncs made errors; then the backward of both kernels'
+   autograd Functions (kernel forward, PyTorch ops backward) against
+   autograd through the plain versions, in fp32 and bf16, gradient by
+   gradient (``LM_BWD_TOL``): flash at the training shapes of phase 12
+   (qwen2 4 x 1,024 GQA, DeepSeek-V2 1 x 512 MLA, causal), the grouped FFN
+   at the prefill-chunk shape;
+7. LM serving, all six families at full width with random weights from a
+   seed in the templates' dtype (bf16; the ssm / hybrid recurrent states in
+   fp32), and qwen2-1.5b once more in fp32: qwen2-1.5b (all 28 layers),
+   deepseek-v2-236b (depth cut to 2 layers: the leading dense layer and one
+   MoE layer), qwen2-vl-72b (depth cut to 2 layers), whisper-large-v3 (32 +
+   32 layers), xlstm-1.3b (48) and zamba2-2.7b (54); ``serve_requests`` with
    ``launch/serve.py``'s defaults (8 requests, batch 4, prompts of 4-24
    tokens from ``default_rng(0)``, 16 new tokens), tokens/s and the median
    decode-step latency; teacher-forced decode of an 8-token prompt against
    ``forward`` at every position (vlm without patches, audio with the
-   cross cache filled from the encoder's K/V; 2e-3 dense-style, 5e-3 MLA,
-   ssm and hybrid, scaled by max(1, |ref|): the reference's own
-   tolerances); ``make_prefill_step`` on one prompt (4,096 tokens; vlm
+   cross cache filled from the encoder's K/V; in fp32 2e-3 dense-style,
+   5e-3 MLA, ssm and hybrid, scaled by max(1, |ref|): the reference's own
+   tolerances; in bf16 ``BF16_MODEL_MULTIPLE`` x the model's bf16-vs-fp32
+   forward error on the same weights on top); ``make_prefill_step`` on one
+   prompt (4,096 tokens; vlm
    with 256 patch embeddings before them; whisper 448 tokens over 1,500
    frames; xlstm 1,024 tokens, its sLSTM a step per token), twice (first
    and warm seconds) with its peak memory; a ``torch.profiler`` breakdown
    of 8 decode steps and a prefill; the flash launches of each model;
+   then xlstm-1.3b and zamba2-2.7b at their widths cut to one super-block
+   of two blocks, in bf16: decode vs forward within
+   ``BF16_MODEL_MULTIPLE`` x the reference's own bf16 error there
+   (``BF16_REF_ERR``, from ``tools/bf16_drift.py``) + the fp32 limit, and
+   the port's bf16-vs-fp32 forward error within that multiple of it;
 8. tiled: ``run_tiled`` (the interpreter engine) on phase 4's batch padded
    by the server's ``ShapeRegistry`` (40,000 V), tiled as served (COO) and
    by ``grid_tile(64, 64, layout="csr")``, 2-layer gcn and gat at width
@@ -92,19 +105,32 @@ Phases, each printing one JSON line or more:
    sharded); on the batch's padded graph a 2 x 2 ("shards", "model") gcn
    pass and a 4-shard scan pass of sage (rows with in-degree >= 1: ROADMAP
    C.1) against ``run_reference``, and a 2-shard ``confirm_wallclock``
-   finalist on ``[cuda:0] * 2``.
+   finalist on ``[cuda:0] * 2``;
+12. training: the first two ``make_train_step`` calls on a 2-layer fp32
+   cut of qwen2-1.5b (4 x 1,024 tokens) with the kernels against the same
+   steps with attention through the plain version, params included
+   (``TRAIN_PARITY_TOL``); the fp32 loss and gradients of deepseek-v2 x2
+   (1 x 512) with both kernels against both plain versions; 4 steps
+   of qwen2-1.5b (28 layers, 4 x 1,024 tokens) and deepseek-v2 x2 (full
+   width, 1 x 512) in bf16 with fp32 moments: finite losses, step seconds,
+   tokens/s, peak memory, the device busy share of a step
+   (``torch.profiler``); then a checkpoint of a 2-layer bf16 cut after step
+   1, restored bit for bit, and step 2 from it equal to step 2 without it.
 
 Launch counters are set to 0 before phase 4 and read after phase 5, set to
 0 again before phase 7 and read after it, and likewise around each of
-phases 8, 9 and 10; phase 11 adds up the launches of its sharded calls
-alone, leaving out the unsharded baselines it runs beside them.  Every
-kernel must have launched on its path (in phases 8 and 11 all four tile
-kernels; in phase 7 flash on every family but ssm).  Then one ``{"kernels": [...]}`` line (all six,
+phases 8, 9 and 10 and around phase 12's two full-size training runs; phase
+11 adds up the launches of its sharded calls alone, leaving out the
+unsharded baselines it runs beside them.  Every kernel must have launched
+on its path (in phases 8 and 11 all four tile kernels; in phase 7 flash on
+every family but ssm; in phase 12 flash for both models, the grouped FFN
+for deepseek).  Then one ``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
 so does a machine without a visible CUDA device.  Weights and inputs come
-from fixed seeds.  fp32 throughout (phase 6 adds bf16), TF32 off.
+from fixed seeds.  TF32 off; the GNN phases are fp32, the LM phases bf16
+(phase 6 checks both dtypes, phase 7 serves qwen2-1.5b in fp32 too).
 """
 from __future__ import annotations
 
@@ -157,7 +183,56 @@ BF16_ULP = 2.0 ** -7
 # (tests/test_archs_smoke.py:80,99,117,134), dense-style 2e-3
 LM_MODEL_TOL = {"dense": 2e-3, "vlm": 2e-3, "audio": 2e-3, "moe": 5e-3, "ssm": 5e-3,
                 "hybrid": 5e-3}
+# The backward of both LM kernels' autograd Functions (the kernel forward,
+# PyTorch ops backward) against autograd through the plain version, held the
+# same way: abs + rel * the backward's rounding magnitude built stage by
+# stage (``flash_attention_bwd_magnitude``, ``grouped_ffn_bwd_magnitude``)
+# + one bf16 ulp of |plain| in bf16, and for flash in bf16 the bound on what
+# reading the forward's bf16 output in ``delta`` moves the gradients by
+# (``flash_attention_delta_error`` at one ulp, BF16_ULP, of |o|; the plain
+# version's autograd never rounds o).  On the CPU the backward in fp32 against
+# fp64 gradients differs by at most 8.4e-8 of that magnitude (S up to 1,024
+# keys; tests/test_torch_lm_bf16.py holds it and fails planted faults), so
+# rel 1e-5 leaves over 100x for the card's other order of summation.
+LM_BWD_TOL = {"flash_attention": (1e-6, 1e-5), "grouped_ffn": (1e-6, 1e-5)}
+# bf16 serving, decode vs forward: both runs round in bf16, each by about
+# the amount the model's bf16 forward differs from its fp32 forward on the
+# same weights (e_model), so |decode - forward| <= 2 e_model by the triangle
+# inequality, plus one e_model for the places where the two paths round
+# differently (a step at a time against the whole prompt), plus the fp32
+# limit above; tests/test_torch_lm_bf16.py holds the port to the reference
+# by the same rule.
+BF16_MODEL_MULTIPLE = 3
+# The limit above is the model's own, and at full depth xlstm's and
+# zamba2's random-weight bf16 forwards lie 0.66 / 0.39 of max|logit| from
+# fp32, where it tests little; the reference drifts as far there
+# (tools/bf16_drift.py, reduced widths at 48 / 54 layers, seeds 0-2: e_ref
+# 0.34-0.62 / 0.12-0.17, the port on the same weights 0.51-0.63 /
+# 0.11-0.16).  So both
+# are also held at their published widths cut to one super-block of two
+# blocks (``recurrent_bf16_check``) against the reference's own bf16 error
+# on the same weights and tokens: max|ref_bf16 - ref_fp32| /
+# max(1, max|ref_fp32|), tools/bf16_drift.py full_width_cut seed 0 on the
+# CPU, whose weights have the fingerprint BF16_REF_WEIGHTS.
+BF16_REF_ERR = {"xlstm-1.3b": 0.029539150956949527, "zamba2-2.7b": 0.027502965531050954}
+BF16_REF_WEIGHTS = {"xlstm-1.3b": "90cafda8cd13150a", "zamba2-2.7b": "f2bac04fd889ee85"}
 PREFILL_LEN = 4096
+# training (phase 12): the reference's peak learning rate; qwen2-1.5b at 4 x
+# 1,024 tokens, deepseek-v2 x2 at 1 x 512, 4 steps each
+TRAIN_LR = 3e-4
+TRAIN_STEPS = 4
+TRAIN_SHAPES = {"dense": (4, 1024), "moe": (1, 512)}
+# the kernels-vs-plain first two training steps on a 2-layer fp32 cut of
+# qwen2-1.5b: loss and grad norm of each within TRAIN_PARITY_TOL of the
+# plain run's (relative), each moment leaf within it of its largest entry,
+# each param within what those moment errors let the second update move it
+# (``_adamw_param_limit``) + one fp32 ulp; and the
+# loss and gradients of deepseek-v2 x2 in fp32 with both kernels against
+# both plain versions, each gradient leaf within it of its largest entry.
+# The kernel forward differs from the plain one by at most 1e-5 of its
+# magnitude (LM_KERNEL_TOL), which the backward carries into the gradients
+# at that order; 1e-4 leaves 10x.
+TRAIN_PARITY_TOL = 1e-4
 WHISPER_DECODER_LEN = 448      # whisper's decoder context (max target positions)
 XLSTM_PREFILL_LEN = 1024       # the sLSTM runs one step per token
 # Off the path: shapes that reach the tail paths of the COO tile SpMM
@@ -668,15 +743,9 @@ def _flash_keep(B, Sq, Sk, causal, window, kv_len, dev):
     """(B, Sq, Sk) bool: the (query, key) pairs the masks keep, queries
     right-aligned against the keys."""
     import torch
-    q_pos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
-    k_pos = torch.arange(Sk, device=dev)[None, :]
-    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        keep &= k_pos <= q_pos
-    if window is not None:
-        keep &= k_pos > q_pos - window
+    from repro_torch.kernels.flash_attention.ref import block_mask
     lens = torch.full((B,), Sk, device=dev) if kv_len is None else kv_len.long()
-    return keep[None] & (k_pos[None] < lens[:, None, None])
+    return block_mask(Sq, Sk, 0, Sk, causal, window, lens, dev)
 
 
 def lm_kernel_checks(cfgs, dev, *, prefill_len=PREFILL_LEN, cache_len=40,
@@ -887,6 +956,142 @@ def lm_kernel_checks(cfgs, dev, *, prefill_len=PREFILL_LEN, cache_len=40,
     return rows
 
 
+def lm_backward_checks(cfgs, dev, *, runs=3, ffn_group=40):
+    """Phase 6's backward checks: each LM kernel's autograd Function (the
+    CUDA kernel forward, the PyTorch ops backward) against autograd through
+    the plain version, in fp32 and bf16, gradient by gradient, at
+    ``LM_BWD_TOL``.  Flash at the two training shapes of phase 12 (qwen2's
+    GQA 12 / 2 heads of 128, causal, 4 x 1,024 tokens; DeepSeek-V2's MLA 128
+    heads of 192 / v 128, causal, 1 x 512), with the times of a forward and
+    backward each way; the grouped FFN at the ``prefill_chunk`` shape of
+    ``lm_kernel_checks``, checked ``ffn_group`` experts at a time (the
+    experts are independent, and the whole would hold three fp32 copies of
+    the 1.26 B expert weights and their gradients at once)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_magnitude,
+                                                         flash_attention_delta_error,
+                                                         flash_attention_ref)
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.kernels.moe_dispatch.ref import grouped_ffn_bwd_magnitude, grouped_ffn_ref
+    from repro_torch.models.moe import capacity
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    def grads(fn, inputs, dy):
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*xs), xs, dy)
+
+    rows, failed = [], []
+
+    def compare(name, case, dtype, got, want, mags, names, worst, extra=None):
+        tol = LM_BWD_TOL[name]
+        for i, (n, g, w, m) in enumerate(zip(names, got, want, mags)):
+            g, w = g.float(), w.float()
+            limit = tol[0] + tol[1] * m
+            if dtype == "bfloat16":
+                limit = limit + BF16_ULP * w.abs()
+            if extra is not None:
+                limit = limit + extra[i]
+            err = (g - w).abs()
+            ratio = float((err / limit).max())
+            if not bool(torch.isfinite(g).all()):
+                failed.append(f"{name} backward {case} {dtype} {n}: non-finite")
+            worst[n] = max(worst.get(n, (0.0, 0.0)), (ratio, float(err.max())))
+
+    def report(name, case, dtype, worst, **extra):
+        for n, (ratio, err) in worst.items():
+            if ratio > 1:
+                failed.append(f"{name} backward {case} {dtype} d{n}: max abs err {err}, "
+                              f"{ratio:.3g} x its elementwise limit")
+        row = dict(name=name, case=case, dtype=dtype, tol_abs=LM_BWD_TOL[name][0],
+                   tol_rel=LM_BWD_TOL[name][1],
+                   tol_ulp=BF16_ULP if dtype == "bfloat16" else 0.0,
+                   err_over_limit={n: r for n, (r, _) in worst.items()},
+                   max_abs_err={n: e for n, (_, e) in worst.items()}, **extra)
+        emit(dict(phase="lm_backward_check", **row))
+        rows.append(row)
+
+    dense, moe_cfg = cfgs["dense"], cfgs["moe"]
+    m = moe_cfg.mla
+    (Bd, Sd), (Bm, Sm) = TRAIN_SHAPES["dense"], TRAIN_SHAPES["moe"]
+    cases = [("gqa_train", Bd, Sd, dense.n_heads, dense.n_kv_heads, dense.hdim, dense.hdim),
+             ("mla_train", Bm, Sm, moe_cfg.n_heads, moe_cfg.n_heads,
+              m.qk_nope + m.qk_rope, m.v_dim)]
+    for case, B, S, H, K, D, Dv in cases:
+        q32, k32, v32 = randn(B, S, H, D), randn(B, S, K, D), randn(B, S, K, Dv)
+        do32 = randn(B, S, H, Dv)
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
+
+            def kernel_path():
+                return grads(lambda *a: flash_ops.flash_attention(*a, causal=True),
+                             (q, k, v), do)
+
+            def plain_path():
+                return grads(lambda *a: flash_attention_ref(*a, causal=True), (q, k, v), do)
+
+            launches0 = flash_ops.K.LAUNCHES["flash_attention"]
+            got = kernel_path()
+            require(flash_ops.K.LAUNCHES["flash_attention"] > launches0,
+                    f"flash backward {case}: the kernel forward did not launch")
+            want = plain_path()
+            mags = flash_attention_bwd_magnitude(q, k, v, do, causal=True)
+            # in bf16 the backward's delta reads the forward's bf16 output
+            extra = (flash_attention_delta_error(q, k, v, do, BF16_ULP, causal=True)
+                     if dtype == "bfloat16" else None)
+            worst = {}
+            compare("flash_attention", case, dtype, got, want, mags, ("q", "k", "v"), worst,
+                    extra)
+            del got, want, mags, extra
+            torch.cuda.empty_cache()
+            report("flash_attention", case, dtype, worst,
+                   shapes=dict(B=B, S=S, H=H, K=K, D=D, Dv=Dv, causal=True),
+                   ms=time_ms(kernel_path, runs, 1), plain_ms=time_ms(plain_path, runs, 1))
+            del q, k, v, do
+        del q32, k32, v32, do32
+        torch.cuda.empty_cache()
+
+    mo = moe_cfg.moe
+    E, d, f = mo.n_routed, moe_cfg.d_model, mo.d_ff_expert
+    n_tok = PREFILL_LEN // 4
+    cap = capacity(moe_cfg, n_tok)
+    x = randn(n_tok, d)
+    r = moe_ops.route(x, randn(d, E, scale=d ** -0.5), mo.top_k, cap, norm_topk=mo.norm_topk)
+    buckets32 = moe_ops.dispatch(x, r, E, cap)
+    counts = torch.clamp(r.counts, max=cap).to(torch.int32)
+    del x, r
+    w32 = [randn(E, d, f, scale=d ** -0.5), randn(E, d, f, scale=d ** -0.5),
+           randn(E, f, d, scale=f ** -0.5)]
+    dy32 = randn(E, cap, d)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        worst, t0 = {}, time.perf_counter()
+        for e0 in range(0, E, ffn_group):
+            sl = slice(e0, min(e0 + ffn_group, E))
+            args = [t[sl].to(tdt) for t in [buckets32] + w32]
+            c, dy = counts[sl].contiguous(), dy32[sl].to(tdt)
+            got = grads(lambda *a: moe_ops.grouped_ffn(*a, c), args, dy)
+            want = grads(lambda *a: grouped_ffn_ref(*a, c), args, dy)
+            mags = grouped_ffn_bwd_magnitude(*args, c, dy)
+            compare("grouped_ffn", "prefill_chunk", dtype, got, want, mags,
+                    ("x", "w_gate", "w_up", "w_down"), worst)
+            del args, dy, got, want, mags
+            torch.cuda.empty_cache()
+        report("grouped_ffn", "prefill_chunk", dtype, worst,
+               shapes=dict(E=E, C=cap, d=d, f=f, tokens=n_tok,
+                           live_rows=int(counts.sum()), expert_group=ffn_group),
+               check_s=time.perf_counter() - t0)
+    del buckets32, w32, dy32
+    torch.cuda.empty_cache()
+    require(not failed, "; ".join(failed))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 7: LM serving, the path of the LM kernels
 # ---------------------------------------------------------------------------
@@ -945,10 +1150,128 @@ def fill_cross_cache(cfg, params, cache, frames):
             cache["cross"][name][i] = t.reshape(B, T, cfg.n_kv_heads, cfg.hdim)
 
 
+def decode_vs_forward(cfg, params, dev, dtype, check_len, gen, label):
+    """Teacher-forced decode of ``check_len`` tokens (``default_rng(3)``)
+    against ``forward`` on them (vlm: no patch prefix; audio: the cross
+    cache filled from the encoder's K/V).  Returns (decode error, its
+    limit, e_model): in bf16 (``dtype`` None) e_model is the same model's
+    bf16 forward against its fp32 forward on the same weights and the limit
+    ``BF16_MODEL_MULTIPLE`` x e_model + the fp32 limit; in fp32 e_model is
+    None and the limit ``LM_MODEL_TOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, tree_map
+
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, check_len)), device=dev)
+    extra = {} if cfg.family == "vlm" else family_inputs(cfg, 1, gen, dev)
+    with torch.no_grad():
+        out = lm.forward(cfg, params, {"tokens": tokens, **extra})
+        full = out[0] if cfg.family == "moe" else out
+        require(bool(torch.isfinite(full).all()), f"{label}: non-finite forward logits")
+        tol, e_model = LM_MODEL_TOL[cfg.family], None
+        if dtype is None:
+            p32 = tree_map(lambda t: t.float(), params)
+            out32 = lm.forward(cfg, p32, {"tokens": tokens, **extra})
+            e_model = scaled_err(full.float(), out32[0] if cfg.family == "moe" else out32)
+            tol = BF16_MODEL_MULTIPLE * e_model + tol
+            del p32, out32
+            torch.cuda.empty_cache()
+    cache = materialize(None, lm.cache_template(cfg, 1, check_len),
+                        dtype_override=dtype, device=dev)
+    if cfg.family == "audio":
+        fill_cross_cache(cfg, params, cache, extra["frames"])
+    step = make_decode_step(cfg)
+    err = 0.0
+    for pos in range(check_len):
+        logits, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
+        require(bool(torch.isfinite(logits).all()),
+                f"{label}: non-finite decode logits at {pos}")
+        err = max(err, scaled_err(logits.float(), full[:, pos].float()))
+    del out, full, cache, extra
+    return err, tol, e_model
+
+
+def one_super_block(cfg):
+    """An ssm or hybrid config at its widths, cut to one super-block of two
+    blocks: xLSTM one mLSTM and one sLSTM, Zamba2 two Mamba2 blocks and the
+    shared attention block."""
+    import dataclasses
+    if cfg.xlstm is not None:
+        return dataclasses.replace(cfg, n_layers=2,
+                                   xlstm=dataclasses.replace(cfg.xlstm, slstm_every=2))
+    return dataclasses.replace(cfg, n_layers=2, shared_attn_every=2)
+
+
+def weights_fingerprint(params) -> str:
+    """sha256 (16 hex digits) of a parameter tree's bytes, leaf by leaf in
+    ``tree_items`` order: the same weights on any machine give the same
+    string."""
+    import hashlib
+
+    import torch
+    from repro_torch.models.common import tree_items
+    h = hashlib.sha256()
+    for path, t in tree_items(params):
+        h.update("/".join(path).encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def recurrent_bf16_check(cfgs, dev, *, check_len=8):
+    """bf16 decode of the two recurrent families held against the
+    reference's own bf16 error rather than the model's: each at its
+    published widths, cut to one super-block of two blocks (xLSTM: an
+    mLSTM and an sLSTM; Zamba2: two Mamba2 blocks and the shared attention
+    block), bf16 weights drawn on the CPU from seed 0 and moved to the
+    card.  On those weights and tokens the reference's bf16 forward lies
+    ``BF16_REF_ERR`` from its fp32 forward (``tools/bf16_drift.py`` on the
+    CPU; the weights' fingerprint must be the one it saw).  Decode vs
+    forward must lie within ``BF16_MODEL_MULTIPLE`` x that + the fp32
+    limit, and the port's own bf16-vs-fp32 forward error (e_model) within
+    ``BF16_MODEL_MULTIPLE`` x that, so a bf16 fault in the port's forward
+    cannot widen its own limit."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, tree_map
+
+    for fam in ("ssm", "hybrid"):
+        cfg = cfgs[fam]
+        cut = one_super_block(cfg)
+        params = materialize(torch.Generator().manual_seed(0), lm.model_template(cut),
+                             device="cpu")
+        fingerprint = weights_fingerprint(params)
+        require(fingerprint == BF16_REF_WEIGHTS[cfg.name],
+                f"{cfg.name} cut: weights {fingerprint}, not the ones BF16_REF_ERR "
+                f"was measured on ({BF16_REF_WEIGHTS[cfg.name]})")
+        params = tree_map(lambda t: t.to(dev), params)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        err, _, e_model = decode_vs_forward(cut, params, dev, None, check_len, gen,
+                                            f"{cfg.name} cut")
+        e_ref = BF16_REF_ERR[cfg.name]
+        tol = BF16_MODEL_MULTIPLE * e_ref + LM_MODEL_TOL[fam]
+        emit(dict(phase="lm_bf16_recurrent_check", model=cfg.name, family=fam,
+                  layers=cut.n_layers, d_model=cut.d_model,
+                  dtype=str(params["embed"].dtype).replace("torch.", ""),
+                  decode_vs_forward_err=err, tol=tol, bf16_vs_fp32_forward_err=e_model,
+                  e_model_limit=BF16_MODEL_MULTIPLE * e_ref, reference_bf16_err=e_ref))
+        require(err <= tol, f"{cfg.name} cut: bf16 decode vs forward err {err} over {tol}")
+        require(e_model <= BF16_MODEL_MULTIPLE * e_ref,
+                f"{cfg.name} cut: bf16 vs fp32 forward err {e_model} over "
+                f"{BF16_MODEL_MULTIPLE} x the reference's {e_ref}")
+        del params
+        torch.cuda.empty_cache()
+
+
 def lm_serving_phase(models, dev, *, requests=8, batch=4, max_prompt=24, max_new=16,
                      check_len=8):
-    """``models``: (label, cfg, prefill tokens) each.  Returns the flash
-    kernel's launches during each model's part of the phase, by label."""
+    """``models``: (label, cfg, prefill tokens, dtype) each; dtype None
+    serves in the templates' dtype (bf16: parameters and caches, the
+    recurrent states carried in fp32), "float32" in fp32.  Returns the
+    flash kernel's launches during each model's part of the phase, by
+    label."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -958,13 +1281,14 @@ def lm_serving_phase(models, dev, *, requests=8, batch=4, max_prompt=24, max_new
     from repro_torch.models.common import materialize, tree_items
 
     flash_launches = {}
-    for label, cfg, prefill_len in models:
+    for label, cfg, prefill_len, dtype in models:
         launches0 = FK.LAUNCHES["flash_attention"]
         t0 = time.perf_counter()
         params = materialize(torch.Generator(device=dev).manual_seed(0),
-                             lm.model_template(cfg), dtype_override="float32",
-                             device=dev)
+                             lm.model_template(cfg), dtype_override=dtype, device=dev)
         n_params = sum(t.numel() for _, t in tree_items(params))
+        param_gb = sum(t.numel() * t.element_size() for _, t in tree_items(params)) / 1e9
+        wdtype = str(params["embed"].dtype).replace("torch.", "")
         init_s = time.perf_counter() - t0
         gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -973,38 +1297,20 @@ def lm_serving_phase(models, dev, *, requests=8, batch=4, max_prompt=24, max_new
         prompts = [rng.integers(0, cfg.vocab, rng.integers(4, max_prompt + 1))
                    for _ in range(requests)]
         res = serve_requests(cfg, params, prompts, batch=batch, max_prompt=max_prompt,
-                             max_new=max_new, device=dev)
+                             max_new=max_new, device=dev, dtype=dtype)
         toks = np.concatenate([o.ravel() for o in res["tokens"]])
         require(toks.size == requests * max_new and toks.min() >= 0
                 and toks.max() < cfg.vocab, f"serving {label}: bad tokens")
 
-        # teacher-forced decode against forward (vlm: no patch prefix;
-        # audio: the cross cache filled from the encoder's K/V)
-        tokens = torch.as_tensor(np.random.default_rng(3).integers(
-            0, cfg.vocab, (1, check_len)), device=dev)
-        extra = {} if cfg.family == "vlm" else family_inputs(cfg, 1, gen, dev)
-        out = lm.forward(cfg, params, {"tokens": tokens, **extra})
-        full = out[0] if cfg.family == "moe" else out
-        require(bool(torch.isfinite(full).all()), f"{label}: non-finite forward logits")
-        cache = materialize(None, lm.cache_template(cfg, 1, check_len),
-                            dtype_override="float32", device=dev)
-        if cfg.family == "audio":
-            fill_cross_cache(cfg, params, cache, extra["frames"])
-        step = make_decode_step(cfg)
-        err = 0.0
-        for pos in range(check_len):
-            logits, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
-            require(bool(torch.isfinite(logits).all()),
-                    f"{label}: non-finite decode logits at {pos}")
-            err = max(err, scaled_err(logits, full[:, pos]))
-        tol = LM_MODEL_TOL[cfg.family]
+        err, tol, e_model = decode_vs_forward(cfg, params, dev, dtype, check_len, gen,
+                                              label)
         require(err <= tol, f"{label}: decode vs forward err {err} over {tol}")
-        del out, full, cache, extra
+        step = make_decode_step(cfg)
 
         # where a decode step's time goes: 8 steps of a batch at the serving
         # batch size, profiled; set against the unprofiled step p50
         cache = materialize(None, lm.cache_template(cfg, batch, max_prompt + max_new),
-                            dtype_override="float32", device=dev)
+                            dtype_override=dtype, device=dev)
         tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
 
         def decode_steps(n=8):
@@ -1037,13 +1343,14 @@ def lm_serving_phase(models, dev, *, requests=8, batch=4, max_prompt=24, max_new
         busy = (None if decode_prof is None
                 else decode_prof["device_ms"] / 1e3 / res["step_p50_s"])
         flash_launches[label] = FK.LAUNCHES["flash_attention"] - launches0
-        emit(dict(phase="lm_serving", model=label, family=cfg.family,
+        emit(dict(phase="lm_serving", model=label, family=cfg.family, dtype=wdtype,
                   layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
-                  param_gb=4 * n_params / 1e9, init_s=init_s,
+                  param_gb=param_gb, init_s=init_s,
                   requests=requests, batch=batch, max_new=max_new,
                   serve_s=res["seconds"], tokens_per_s=res["tokens_per_s"],
                   decode_steps=len(res["step_s"]), step_p50_s=res["step_p50_s"],
-                  decode_vs_forward_err=err, tol=tol, prefill_tokens=prefill_len,
+                  decode_vs_forward_err=err, tol=tol, bf16_vs_fp32_forward_err=e_model,
+                  prefill_tokens=prefill_len,
                   prefill_extra={k: list(v.shape) for k, v in prompt.items()
                                  if k != "tokens"},
                   prefill_first_s=prefill_s[0], prefill_s=prefill_s[1],
@@ -1446,6 +1753,293 @@ def sharded_phase(graphs, whole, whole_tiles, dev, *, width=WIDTH,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training on one card
+# ---------------------------------------------------------------------------
+
+def _leaves_equal(a, b) -> bool:
+    """Two trees hold the same tensors bit for bit (bf16 by their 16-bit
+    patterns; dtypes must match too)."""
+    import torch
+    from repro_torch.checkpointing.ckpt import _leaves
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        return False
+    for (_, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _adamw_param_limit(p, m, v, lr, step, tol, *, b1=0.9, b2=0.95, eps=1e-8):
+    """Elementwise: how far params ``p`` after AdamW's first step at a rate
+    ``lr`` > 0 (from equal params) may lie from another run's when the
+    moments ``m``, ``v`` after step ``step`` are each within ``tol`` of
+    their leaf's largest entry, plus one fp32 ulp of ``p``.  The update u =
+    m^/(sqrt(v^) + eps) with m^ within dm and sqrt(v^) + eps within [lo,
+    hi] moves by at most dm / lo + |m^| (hi - lo) / (lo hi)."""
+    import torch
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+    mh, vh = m.abs() / bc1, v / bc2
+    dm = tol * float(mh.max())
+    dv = tol * float(vh.max())
+    lo = torch.sqrt(torch.clamp(vh - dv, min=0.0)) + eps
+    hi = torch.sqrt(vh + dv) + eps
+    du = dm / lo + mh * (hi - lo) / (lo * hi)
+    return lr * du + torch.finfo(torch.float32).eps * p.abs()
+
+
+def training_parity(cfg, dev, *, batch, seq):
+    """Two training steps of ``cfg`` (fp32) with the kernels, and the same
+    two with the model's attention through the plain version
+    (``flash_attention_ref``, differentiated by autograd): the loss and grad
+    norm of each step, the moments after the second, and the params after
+    it (the WSD rate is 0 at step 0 and lr_1 > 0 at step 1).  A param may
+    differ by what the second update moves when the moments are off by
+    ``TRAIN_PARITY_TOL`` of their leaf's largest entry
+    (:func:`_adamw_param_limit`): a parameter whose gradient is rounding
+    noise in both runs, as some of the key bias's are (its rows RoPE leaves
+    unrotated shift every score of a row alike), moves by the noise."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.steps import make_train_step, opt_state_bits
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import materialize, tree_items
+    from repro_torch.optim.adamw import adamw_init
+
+    pipe = TokenPipeline(cfg, seq_len=seq, global_batch=batch)
+    data = [batch_tensors(pipe.global_batch_at(i), dev) for i in range(2)]
+
+    def init():
+        return materialize(torch.Generator(device=dev).manual_seed(0),
+                           lm.model_template(cfg), dtype_override="float32", device=dev)
+
+    def two_steps(plain):
+        params = init()
+        opt = adamw_init(params, opt_state_bits(cfg))
+        step = make_train_step(cfg, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+        kernel_flash = attention.flash_attention
+        if plain:
+            attention.flash_attention = flash_attention_ref
+        try:
+            metrics = []
+            for b in data:
+                params, opt, m = step(params, opt, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+            return params, opt, metrics
+        finally:
+            attention.flash_attention = kernel_flash
+
+    pk, ok, mk = two_steps(False)
+    pp, op, mp = two_steps(True)
+    rel = {f"{k}_{i}": abs(a[k] - b[k]) / max(1e-30, abs(b[k]))
+           for i, (a, b) in enumerate(zip(mk, mp)) for k in ("loss", "grad_norm")}
+    moment = 0.0
+    for tree_k, tree_p in ((ok.m, op.m), (ok.v, op.v)):
+        for (_, a), (_, b) in zip(tree_items(tree_k), tree_items(tree_p)):
+            moment = max(moment, float((a - b).abs().max()) / max(1e-30, float(b.abs().max())))
+    param_ratio = 0.0
+    for (_, a), (_, b), (_, m), (_, v) in zip(tree_items(pk), tree_items(pp),
+                                              tree_items(op.m), tree_items(op.v)):
+        limit = _adamw_param_limit(b, m, v, mk[1]["lr"], 2, TRAIN_PARITY_TOL)
+        param_ratio = max(param_ratio, float(((a - b).abs() / limit).max()))
+    row = dict(model=cfg.name, layers=cfg.n_layers, batch=batch, seq=seq, dtype="float32",
+               loss=[m["loss"] for m in mk], plain_loss=[m["loss"] for m in mp],
+               grad_norm=[m["grad_norm"] for m in mk],
+               plain_grad_norm=[m["grad_norm"] for m in mp], lr=[m["lr"] for m in mk],
+               rel_err=rel, moment_err=moment, param_err_over_limit=param_ratio,
+               tol=TRAIN_PARITY_TOL)
+    emit(dict(phase="training_parity", **row))
+    require(mk[1]["lr"] > 0, f"training parity: the second step's rate is {mk[1]['lr']}")
+    require(all(v <= TRAIN_PARITY_TOL for v in rel.values())
+            and moment <= TRAIN_PARITY_TOL and param_ratio <= 1.0,
+            f"training steps with the kernels vs the plain versions: {row}")
+    del pk, ok, pp, op
+    torch.cuda.empty_cache()
+
+
+def gradient_parity(cfg, dev, *, batch, seq):
+    """The loss and gradients of ``cfg`` (fp32, one batch) with both LM
+    kernels, and with attention and the expert FFN through their plain
+    versions (``flash_attention_ref``, ``grouped_ffn_ref``, differentiated by
+    autograd): the loss, and each gradient leaf within ``TRAIN_PARITY_TOL``
+    of its largest entry.  No optimizer step (the moments of a full-width
+    MoE would not fit beside two sets of fp32 gradients); the AdamW update
+    is held by ``training_parity``."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.moe_dispatch import kernel as GK
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.kernels.moe_dispatch.ref import grouped_ffn_ref
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import materialize, tree_items
+
+    data = batch_tensors(TokenPipeline(cfg, seq_len=seq, global_batch=batch)
+                         .global_batch_at(0), dev)
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), dtype_override="float32", device=dev)
+    leaves = [t for _, t in tree_items(params)]
+
+    def loss_and_grads(plain):
+        kernels = attention.flash_attention, moe_ops.grouped_ffn
+        if plain:
+            attention.flash_attention, moe_ops.grouped_ffn = flash_attention_ref, grouped_ffn_ref
+        try:
+            for t in leaves:
+                t.requires_grad_(True)
+            loss = lm.loss_fn(cfg, params, data)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        finally:
+            attention.flash_attention, moe_ops.grouped_ffn = kernels
+            for t in leaves:
+                t.requires_grad_(False)
+
+    flash0, ffn0 = FK.LAUNCHES["flash_attention"], GK.LAUNCHES["grouped_ffn"]
+    lk, gk = loss_and_grads(False)
+    require(FK.LAUNCHES["flash_attention"] > flash0 and GK.LAUNCHES["grouped_ffn"] > ffn0,
+            f"gradient parity {cfg.name}: a kernel did not launch")
+    lp, gp = loss_and_grads(True)
+    grad_err = max(float((a - b).abs().max()) / max(1e-30, float(b.abs().max()))
+                   for a, b in zip(gk, gp))
+    row = dict(model=cfg.name, layers=cfg.n_layers, batch=batch, seq=seq, dtype="float32",
+               loss=lk, plain_loss=lp, loss_rel_err=abs(lk - lp) / max(1e-30, abs(lp)),
+               grad_err=grad_err, tol=TRAIN_PARITY_TOL)
+    emit(dict(phase="gradient_parity", **row))
+    require(row["loss_rel_err"] <= TRAIN_PARITY_TOL and grad_err <= TRAIN_PARITY_TOL,
+            f"gradients with the kernels vs the plain versions: {row}")
+    del params, leaves, gk, gp
+    torch.cuda.empty_cache()
+
+
+def train_model(label, cfg, dev, *, batch, seq, steps=TRAIN_STEPS):
+    """``steps`` steps of ``make_train_step`` from the templates' dtype
+    (bf16 params, fp32 moments at these sizes), on the token pipeline's
+    batches: losses (finite), step seconds (host clock to a synchronize),
+    tokens/s, peak memory, and the device busy share of the last step
+    (``torch.profiler``'s device time over the median unprofiled step)."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step, opt_state_bits
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, tree_items
+    from repro_torch.optim.adamw import adamw_init
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), device=dev)
+    bits = opt_state_bits(cfg)
+    opt = adamw_init(params, bits)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    step_fn = make_train_step(cfg, peak_lr=TRAIN_LR, total_steps=steps)
+    pipe = TokenPipeline(cfg, seq_len=seq, global_batch=batch)
+    losses, grad_norms, step_s = [], [], []
+
+    def record(metrics):
+        losses.append(float(metrics["loss"]))
+        grad_norms.append(float(metrics["grad_norm"]))
+        require(all(map(lambda v: v == v and abs(v) != float("inf"),
+                        (losses[-1], grad_norms[-1]))),
+                f"training {label}: step {len(losses) - 1} loss {losses[-1]} "
+                f"grad norm {grad_norms[-1]}")
+
+    for s in range(steps - 1):
+        data = batch_tensors(pipe.global_batch_at(s), dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, data)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        record(metrics)
+    data = batch_tensors(pipe.global_batch_at(steps - 1), dev)
+    box = {}
+
+    def last_step():
+        box["m"] = step_fn(params, opt, data)[2]
+
+    prof = device_breakdown(last_step)
+    record(box["m"])
+    warm = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    row = dict(model=label, family=cfg.family, layers=cfg.n_layers, params=n_params,
+               dtype=str(params["embed"].dtype).replace("torch.", ""), state_bits=bits,
+               batch=batch, seq=seq, steps=steps, losses=losses, grad_norms=grad_norms,
+               init_s=init_s, step_s=step_s, warm_step_s=warm,
+               tokens_per_s=batch * seq / warm,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               device_busy_share=None if prof is None else prof["device_ms"] / 1e3 / warm,
+               profile=prof)
+    emit(dict(phase="training", **row))
+    del params, opt, data, box
+    torch.cuda.empty_cache()
+    return row
+
+
+def checkpoint_roundtrip(cfg, dev, *, batch, seq):
+    """Two bf16 training steps of ``cfg``, a checkpoint of (params,
+    moments) after step 1 restored bit for bit, and step 2 from the restore
+    equal, bit for bit, to step 2 from the live state.  Deterministic
+    algorithms are on for the check (the embedding's backward scatters)."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpointing import restore_checkpoint, save_checkpoint
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step, opt_state_bits
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize
+    from repro_torch.optim.adamw import adamw_init
+
+    root = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), device=dev)
+    opt = adamw_init(params, opt_state_bits(cfg))
+    step_fn = make_train_step(cfg, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(cfg, seq_len=seq, global_batch=batch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for s in range(2):
+            params, opt, _ = step_fn(params, opt, batch_tensors(pipe.global_batch_at(s), dev))
+        t0 = time.perf_counter()
+        save_checkpoint(str(root), 1, {"params": params, "opt": opt})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = restore_checkpoint(str(root), 1, {"params": params, "opt": opt})
+        restore_s = time.perf_counter() - t0
+        restored_equal = _leaves_equal(back, {"params": params, "opt": opt})
+        data = batch_tensors(pipe.global_batch_at(2), dev)
+        pa, oa, ma = step_fn(params, opt, data)
+        pb, ob, mb = step_fn(back["params"], back["opt"], data)
+        step2_equal = (_leaves_equal({"p": pa, "o": oa}, {"p": pb, "o": ob})
+                       and float(ma["loss"]) == float(mb["loss"]))
+        ckpt_gb = sum(f.stat().st_size for f in root.rglob("*")) / 1e9
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    row = dict(model=cfg.name, layers=cfg.n_layers, dtype="bfloat16", batch=batch,
+               seq=seq, checkpoint_gb=ckpt_gb, save_s=save_s, restore_s=restore_s,
+               restored_bit_exact=restored_equal, step2_bit_exact=step2_equal)
+    emit(dict(phase="training_checkpoint", **row))
+    require(restored_equal, "checkpoint restore is not bit-exact")
+    require(step2_equal, "step 2 from the restored checkpoint differs from step 2 without it")
+    del params, opt, back, pa, oa, pb, ob
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1525,26 +2119,33 @@ def main() -> int:
                "ssm": get_config("xlstm-1.3b"),
                "hybrid": get_config("zamba2-2.7b")}
     lm_rows = lm_kernel_checks(lm_cfgs, dev)
+    lm_backward_checks(lm_cfgs, dev)
 
-    # 7. LM serving of all six families, with launch counts; the flash
-    # kernel must launch on each family that attends (ssm has no attention)
+    # 7. LM serving of all six families in the templates' dtype (bf16), and
+    # qwen2-1.5b once more in fp32, with launch counts; the flash kernel must
+    # launch on each family that attends (ssm has no attention)
     FK.reset_launches()
     GK.reset_launches()
-    lm_models = [("qwen2-1.5b", lm_cfgs["dense"], PREFILL_LEN),
-                 ("deepseek-v2-236b_x2", lm_cfgs["moe"], PREFILL_LEN),
-                 ("qwen2-vl-72b_x2", lm_cfgs["vlm"], PREFILL_LEN),
-                 ("whisper-large-v3", lm_cfgs["audio"], WHISPER_DECODER_LEN),
-                 ("xlstm-1.3b", lm_cfgs["ssm"], XLSTM_PREFILL_LEN),
-                 ("zamba2-2.7b", lm_cfgs["hybrid"], PREFILL_LEN)]
+    lm_models = [("qwen2-1.5b", lm_cfgs["dense"], PREFILL_LEN, None),
+                 ("deepseek-v2-236b_x2", lm_cfgs["moe"], PREFILL_LEN, None),
+                 ("qwen2-vl-72b_x2", lm_cfgs["vlm"], PREFILL_LEN, None),
+                 ("whisper-large-v3", lm_cfgs["audio"], WHISPER_DECODER_LEN, None),
+                 ("xlstm-1.3b", lm_cfgs["ssm"], XLSTM_PREFILL_LEN, None),
+                 ("zamba2-2.7b", lm_cfgs["hybrid"], PREFILL_LEN, None),
+                 ("qwen2-1.5b_fp32", lm_cfgs["dense"], PREFILL_LEN, "float32")]
     flash_by_model = lm_serving_phase(lm_models, dev)
     lm_launches = {**FK.LAUNCHES, **GK.LAUNCHES}
     emit(dict(phase="lm_launches", **lm_launches, flash_by_model=flash_by_model))
     for name, n in lm_launches.items():
         require(n > 0, f"kernel {name} was not launched on the LM serving path")
-    for label, cfg, _ in lm_models:
+    for label, cfg, _, _ in lm_models:
         require(flash_by_model[label] > 0 or cfg.family == "ssm",
                 f"the flash kernel was not launched serving {label}")
     launches.update(lm_launches)
+    # 7b. bf16 decode of xlstm and zamba2 at full width and one super-block,
+    # against the reference's own bf16 error (off the count: the counts of
+    # phase 7 are read)
+    recurrent_bf16_check(lm_cfgs, dev)
 
     # 8. the tiled interpreter on the serving batch, with launch counts
     K.reset_launches()
@@ -1579,6 +2180,32 @@ def main() -> int:
     emit(dict(phase="sharded_launches", **sharded_launches, by_part=by_part))
     for name, n in sharded_launches.items():
         require(n > 0, f"kernel {name} was not launched on the sharded path")
+
+    # 12. training: the kernels against the plain versions on a 2-layer fp32
+    # cut of qwen2-1.5b (two steps) and on deepseek-v2 x2 (gradients), then 4 bf16 steps of qwen2-1.5b (28 layers) and
+    # deepseek-v2 x2 at full width with launch counts, then the checkpoint
+    # round trip on a 2-layer bf16 cut
+    two_layers = dataclasses.replace(lm_cfgs["dense"], n_layers=2)
+    training_parity(two_layers, dev, batch=TRAIN_SHAPES["dense"][0],
+                    seq=TRAIN_SHAPES["dense"][1])
+    gradient_parity(lm_cfgs["moe"], dev, batch=TRAIN_SHAPES["moe"][0],
+                    seq=TRAIN_SHAPES["moe"][1])
+    FK.reset_launches()
+    GK.reset_launches()
+    train_launches = {}
+    for label, fam in (("qwen2-1.5b", "dense"), ("deepseek-v2-236b_x2", "moe")):
+        before = {**FK.LAUNCHES, **GK.LAUNCHES}
+        B, S = TRAIN_SHAPES[fam]
+        train_model(label, lm_cfgs[fam], dev, batch=B, seq=S)
+        train_launches[label] = {k: n - before[k] for k, n in {**FK.LAUNCHES,
+                                                                **GK.LAUNCHES}.items()}
+    emit(dict(phase="training_launches", **FK.LAUNCHES, **GK.LAUNCHES,
+              by_model=train_launches))
+    for label, n in train_launches.items():
+        require(n["flash_attention"] > 0, f"the flash kernel was not launched training {label}")
+    require(train_launches["deepseek-v2-236b_x2"]["grouped_ffn"] > 0,
+            "the grouped FFN kernel was not launched training deepseek-v2-236b_x2")
+    checkpoint_roundtrip(two_layers, dev, batch=2, seq=256)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

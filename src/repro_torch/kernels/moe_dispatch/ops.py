@@ -8,6 +8,13 @@ scatter back to tokens (``combine``).  ``grouped_ffn`` takes the plain
 PyTorch version (``ref.py``) for CPU tensors and launches the hand-written
 kernel (``kernel.py``) for CUDA tensors, which raises rather than falling
 back.  All functions are device-local.
+
+Training differentiates them as the reference's ``jax.value_and_grad``
+does its plain path (``use_pallas=False``): ``route``, ``dispatch`` and
+``combine`` are torch ops (the top-k weights carry gradients, the indices
+and counts do not), and ``grouped_ffn`` is a ``torch.autograd.Function``
+(:class:`GroupedFfn`) whose forward is the dispatch above and whose
+backward is :func:`grouped_ffn_backward`, ``torch.bmm`` in float32.
 """
 from __future__ import annotations
 
@@ -82,14 +89,72 @@ def combine(y_buckets, r: Routing, n_tokens: int) -> torch.Tensor:
     return out.index_add_(0, r.token_idx, vals)
 
 
-def grouped_ffn(buckets, w_gate, w_up, w_down, counts) -> torch.Tensor:
-    """Per-expert SwiGLU over (E, C, d) buckets; rows at or past
-    ``counts[e]`` come back zero."""
+def _forward(buckets, w_gate, w_up, w_down, counts):
     if buckets.device.type == "cpu":
         return grouped_ffn_ref(buckets, w_gate, w_up, w_down, counts)
     return K.grouped_ffn_cuda(buckets.contiguous(), w_gate.contiguous(),
                               w_up.contiguous(), w_down.contiguous(),
                               counts.to(device=buckets.device, dtype=torch.int32))
+
+
+#: the backward takes experts in groups of at most this many weight elements
+#: (d x f) each, so its float32 copies of the weights stay small
+BWD_GROUP_ELEMS = 1 << 26
+
+
+def grouped_ffn_backward(buckets, w_gate, w_up, w_down, counts, dy):
+    """Gradients (d buckets, d w_gate, d w_up, d w_down) of
+    ``grouped_ffn(buckets, w_gate, w_up, w_down, counts)`` for the output
+    gradient ``dy`` (E, C, d): the SwiGLU recomputed and differentiated with
+    ``torch.bmm`` in float32, a group of experts at a time, returned in the
+    inputs' dtypes.  Rows at or past ``counts[e]`` are zero in the output
+    whatever the buckets hold, so they get zero gradient and add nothing to
+    the weights'."""
+    E, C, d = buckets.shape
+    f = w_gate.shape[-1]
+    live = (torch.arange(C, device=buckets.device)[None, :]
+            < counts.to(buckets.device)[:, None])
+    grads = [torch.empty_like(t) for t in (buckets, w_gate, w_up, w_down)]
+    step = max(1, BWD_GROUP_ELEMS // (d * f))
+    for e0 in range(0, E, step):
+        sl = slice(e0, min(e0 + step, E))
+        x = buckets[sl].float()
+        wg, wu, wd = w_gate[sl].float(), w_up[sl].float(), w_down[sl].float()
+        g = torch.where(live[sl][..., None], dy[sl].float(), 0.0)
+        h, u = torch.bmm(x, wg), torch.bmm(x, wu)
+        sig = torch.sigmoid(h)
+        sh = h * sig                                          # silu(h)
+        grads[3][sl] = torch.bmm((sh * u).transpose(1, 2), g)
+        da = torch.bmm(g, wd.transpose(1, 2))
+        dh = da * u * (sig * (1 + h * (1 - sig)))             # silu'(h)
+        du = da * sh
+        grads[0][sl] = (torch.bmm(dh, wg.transpose(1, 2))
+                        + torch.bmm(du, wu.transpose(1, 2)))
+        xt = x.transpose(1, 2)
+        grads[1][sl] = torch.bmm(xt, dh)
+        grads[2][sl] = torch.bmm(xt, du)
+    return tuple(grads)
+
+
+class GroupedFfn(torch.autograd.Function):
+    """The grouped FFN with the kernel (or the plain version on the CPU)
+    forward and :func:`grouped_ffn_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, buckets, w_gate, w_up, w_down, counts):
+        ctx.save_for_backward(buckets, w_gate, w_up, w_down, counts)
+        return _forward(buckets, w_gate, w_up, w_down, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*grouped_ffn_backward(*ctx.saved_tensors, dy), None)
+
+
+def grouped_ffn(buckets, w_gate, w_up, w_down, counts) -> torch.Tensor:
+    """Per-expert SwiGLU over (E, C, d) buckets; rows at or past
+    ``counts[e]`` come back zero.  Differentiable in the buckets and the
+    three weights."""
+    return GroupedFfn.apply(buckets, w_gate, w_up, w_down, counts)
 
 
 def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int, capacity: int,

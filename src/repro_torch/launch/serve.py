@@ -8,15 +8,17 @@ requests with different prompt lengths are padded into a fixed decode
 batch, prefilled by teacher-forcing the prompts through ``decode_step``
 (filling the batch's cache from ``lm.cache_template``: KV caches, or the
 ssm / hybrid recurrent states; audio's cross cache stays zeros, as in the
-reference), then decoded greedily.  Runs on ``cuda`` unless ``--device``
-names another device.
+reference), then decoded greedily.  ``--reduced`` serves the smoke-scale
+config in float32, as the reference's does; otherwise parameters and
+caches take the templates' dtype (bfloat16).  Runs on ``cuda`` unless
+``--device`` names another device.
 """
 from __future__ import annotations
 
 import argparse
 import statistics
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,10 +37,14 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve_requests(cfg: ArchConfig, params: Dict, prompts: Sequence[np.ndarray], *,
-                   batch: int, max_prompt: int, max_new: int, device=None) -> Dict:
+                   batch: int, max_prompt: int, max_new: int, device=None,
+                   dtype: Optional[str] = None) -> Dict:
     """Serve ``prompts`` (int token arrays, each at most ``max_prompt``
     long) in batches of ``batch``: teacher-forced prefill through the decode
-    step, then ``max_new`` greedy tokens.
+    step, then ``max_new`` greedy tokens.  Each batch's cache is made in
+    ``dtype`` (a torch dtype name), or in the cache template's dtypes when
+    it is None (then the ssm / hybrid recurrent states are carried in
+    float32 from the first step, as the reference's are).
 
     Returns ``tokens`` (one (B, max_new) int array per batch), ``step_s``
     (host seconds of every decode step, synchronised with the device),
@@ -70,7 +76,7 @@ def serve_requests(cfg: ArchConfig, params: Dict, prompts: Sequence[np.ndarray],
             padded[i, :len(p)] = p
         prompt_t = torch.as_tensor(padded, device=dev)
         cache = materialize(None, lm.cache_template(cfg, B, max_len),
-                            dtype_override="float32", device=dev)
+                            dtype_override=dtype, device=dev)
         # prefill: teacher-force prompts through decode, filling the cache
         tok = None
         for pos in range(int(lens.max())):
@@ -103,16 +109,16 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     dev = resolve(args.device)
+    dtype = "float32" if args.reduced else None
     params = materialize(torch.Generator(device=dev).manual_seed(0),
-                         lm.model_template(cfg), dtype_override="float32",
-                         device=dev)
+                         lm.model_template(cfg), dtype_override=dtype, device=dev)
 
     rng = np.random.default_rng(0)
     queue = [rng.integers(0, cfg.vocab, rng.integers(4, args.max_prompt + 1))
              for _ in range(args.requests)]
     res = serve_requests(cfg, params, queue, batch=args.batch,
                          max_prompt=args.max_prompt, max_new=args.max_new,
-                         device=dev)
+                         device=dev, dtype=dtype)
     for b, out in enumerate(res["tokens"]):
         lens = [len(p) for p in queue[b * args.batch:(b + 1) * args.batch]]
         print(f"served batch of {len(out)}: prompts {lens}, "

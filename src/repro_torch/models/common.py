@@ -56,6 +56,19 @@ def tree_items(tree, prefix: Tuple[str, ...] = ()):
         yield prefix, tree
 
 
+def tree_unflatten(like, flat):
+    """The items of ``flat``, in :func:`tree_items` order, placed in a tree of
+    ``like``'s structure (nested dicts)."""
+    it = iter(flat)
+    out: dict = {}
+    for path, _ in tree_items(like):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = next(it)
+    return out
+
+
 def stack_templates(tree, n: int):
     """Add a leading layer axis to every leaf."""
     return tree_map(lambda l: ParamLeaf((n,) + l.shape, (None,) + l.spec,
@@ -148,3 +161,14 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     ang = pos / (10000 ** (2 * i / d))
     out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
     return torch.as_tensor(out, dtype=torch.float32, device=device)
+
+
+def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
+    """Mean token cross-entropy in float32 plus ``z_loss`` x logsumexp^2
+    (logit drift control), as ``repro.models.common.cross_entropy``.
+    logits: (..., V); labels: (...) int."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    ce = lse - gold
+    return (ce + z_loss * lse ** 2).mean()

@@ -19,18 +19,34 @@ Parameters are the reference's tree — nested dicts of tensors, each layer
 stack with a leading layer axis (the ssm and hybrid super-blocks nest a
 second stack) — so weights carry across name for name
 (:func:`repro_torch.convert.lm_params_from_reference`).  The reference's
-``lax.scan`` over a stack is a Python loop over its layer axis here, and
-``jax.checkpoint`` is dropped (inference only).  Decode updates the cache
-in place and returns it: KV caches by slice writes, recurrent states by
-copying each block's new state into its cache views.  :class:`LM` is a
-thin ``nn.Module`` that registers the tensors and calls these functions.
+``lax.scan`` over a stack is a Python loop over its layer axis here.  Where
+the reference wraps a block in ``jax.checkpoint``, the port runs it through
+``torch.utils.checkpoint`` (non-reentrant) whenever autograd records, so
+training keeps each block's input and recomputes the rest in backward;
+:func:`loss_fn` is the training objective.  Decode updates the cache in
+place and returns it: KV caches by slice writes, recurrent states by
+copying each block's new state into its cache views.
+
+Dtypes follow the reference's: parameters and caches in the templates'
+dtype (bfloat16 unless overridden), the recurrences in float32.  The
+reference's decode *returns* the xLSTM states (mLSTM ``C``, ``n``, ``m``;
+sLSTM ``c``, ``n``, ``h``, ``m``) and the Mamba2 ``ssm`` state in float32
+whatever the cache's dtype, so from its second step on it carries them in
+float32.  The port promotes those leaves of the cache to float32 on the
+first decode step (:func:`_promote_states`; a float32 cache is left as it
+is), so copying a new state into the cache never rounds it; KV, MLA
+latent and conv caches stay in the cache's dtype, as the reference casts
+into them.  :class:`LM` is a thin ``nn.Module`` that registers the tensors
+and calls these functions.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
@@ -38,8 +54,8 @@ from . import attention as A
 from . import mamba2 as M2
 from . import moe as MOE
 from . import xlstm as XL
-from .common import (layer, layer_norm, leaf, rms_norm, sinusoidal_positions,
-                     stack_templates, tree_items)
+from .common import (cross_entropy, layer, layer_norm, leaf, rms_norm,
+                     sinusoidal_positions, stack_templates, tree_items)
 
 FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
 VLM_PATCHES = 256  # stub vision prefix length for the vlm family
@@ -244,6 +260,37 @@ def _whisper_block(cfg, p, h, positions, *, causal=True, enc=None, cache=None,
     return h + MOE.gelu_ffn(p["ffn"], _ln(h, p["ln3"], eps))
 
 
+def _remat(fn, *args):
+    """``jax.checkpoint``'s counterpart: when autograd records (grad mode on
+    and a tensor among ``args``, or in their dicts, requires grad), run
+    ``fn`` under ``torch.utils.checkpoint`` (its activations are recomputed
+    in backward); otherwise just call it."""
+    def needs_grad(a):
+        if isinstance(a, dict):
+            return any(needs_grad(v) for v in a.values())
+        return isinstance(a, torch.Tensor) and a.requires_grad
+
+    if torch.is_grad_enabled() and any(needs_grad(a) for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+#: cache leaves the reference's decode returns in float32, by block
+_FP32_STATES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m"),
+                "mamba": ("ssm",)}
+
+
+def _promote_states(cache: Dict) -> None:
+    """Replace the ssm / hybrid recurrent-state leaves of ``cache`` that are
+    not float32 by float32 copies (in the dict, so the caller's cache holds
+    them), as the reference's first decode step returns them."""
+    for block, keys in _FP32_STATES.items():
+        state = cache["layers"].get(block)
+        for k in keys if state is not None else ():
+            if state[k].dtype != torch.float32:
+                state[k] = state[k].float()
+
+
 def _set_state(state: Optional[Dict], new: Optional[Dict]) -> None:
     """Copy a block's new recurrent state into its cache views."""
     if state is not None:
@@ -286,7 +333,6 @@ def _zamba_super(cfg, p, shared, h, positions, state=None, attn_cache=None, wpos
 # forward (prefill) and decode
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over frame embeddings (B, T, d), the stub
     frontend's output: sinusoidal positions, the non-causal blocks, the
@@ -296,18 +342,18 @@ def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor) -> torch.Tensor:
     enc = enc + sinusoidal_positions(T, cfg.d_model, device=enc.device).to(enc.dtype)
     positions = torch.arange(T, device=enc.device)
     for i in range(_n_layers(params["enc_layers"])):
-        enc = _whisper_block(cfg, layer(params["enc_layers"], i), enc, positions,
-                             causal=False)
+        enc = _remat(partial(_whisper_block, cfg, causal=False),
+                     layer(params["enc_layers"], i), enc, positions)
     return _ln(enc, params["ln_enc"], cfg.norm_eps)
 
 
-@torch.no_grad()
 def forward(cfg: ArchConfig, params: Dict, batch: Dict
             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Logits (B, S_tok, vocab) for prefill; the moe family returns
-    (logits, summed router aux loss) as the reference does.  ``batch``
-    holds ``tokens`` and, for vlm, optionally ``patch_embeds`` (B, P, d);
-    for audio, ``frames`` (B, T, d)."""
+    """Logits (B, S_tok, vocab) for training and prefill; the moe family
+    returns (logits, summed router aux loss) as the reference does.
+    ``batch`` holds ``tokens`` and, for vlm, optionally ``patch_embeds``
+    (B, P, d); for audio, ``frames`` (B, T, d).  Each block is
+    rematerialized when autograd records (:func:`_remat`)."""
     _require_family(cfg)
     fam = cfg.family
     tokens = batch["tokens"]
@@ -320,7 +366,7 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict
 
     if fam in ("dense", "vlm"):
         for i in range(_n_layers(params["layers"])):
-            x = _dense_block(cfg, layer(params["layers"], i), x, positions)
+            x = _remat(partial(_dense_block, cfg), layer(params["layers"], i), x, positions)
         logits = _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
         return logits[:, -S_tok:] if fam == "vlm" else logits
 
@@ -330,7 +376,8 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict
             if name not in params:
                 continue
             for i in range(_n_layers(params[name])):
-                x, aux = _mla_block(cfg, kind, layer(params[name], i), x, positions)
+                x, aux = _remat(partial(_mla_block, cfg, kind), layer(params[name], i),
+                                x, positions)
                 if aux is not None:
                     aux_total = aux_total + aux
         return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux_total
@@ -339,14 +386,30 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict
         enc = encode(cfg, params, batch["frames"])
         x = x + sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)
         for i in range(_n_layers(params["layers"])):
-            x = _whisper_block(cfg, layer(params["layers"], i), x, positions, enc=enc)
+            x = _remat(partial(_whisper_block, cfg, enc=enc), layer(params["layers"], i),
+                       x, positions)
         return _logits(cfg, params, _ln(x, params["ln_f"], cfg.norm_eps))
 
     for i in range(_n_layers(params["layers"])):
         p = layer(params["layers"], i)
-        x = (_xlstm_super(cfg, p, x) if fam == "ssm"
-             else _zamba_super(cfg, p, params["shared"], x, positions))
+        x = (_remat(partial(_xlstm_super, cfg), p, x) if fam == "ssm"
+             else _remat(partial(_zamba_super, cfg), p, params["shared"], x, positions))
     return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """The training objective (``repro.models.lm.loss_fn``): next-token
+    cross-entropy in float32 with a 1e-4 z-loss over the text logits (vlm:
+    the positions after the patches; audio: the decoder tokens), plus
+    1e-3 x the summed router aux loss for the moe family unless it balances
+    with a router bias."""
+    out = forward(cfg, params, batch)
+    aux = 0.0
+    if cfg.family == "moe":
+        out, aux_total = out
+        if not cfg.moe.aux_free_bias:
+            aux = 1e-3 * aux_total
+    return cross_entropy(out[:, :-1], batch["tokens"][:, 1:]) + aux
 
 
 @torch.no_grad()
@@ -381,6 +444,7 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
                                cross=layer(cache["cross"], i), pos=pos)
         return _logits(cfg, params, _ln(x, params["ln_f"], cfg.norm_eps)), cache
     elif fam == "ssm":
+        _promote_states(cache)
         for i in range(_n_layers(params["layers"])):
             x = _xlstm_super(cfg, layer(params["layers"], i), x, layer(cache["layers"], i))
     else:
@@ -389,6 +453,7 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
         # so once the ring has wrapped the older slots past it drop out, as
         # in the reference (ROADMAP C.3)
         wpos = pos % cache["shared"]["k"].shape[2]
+        _promote_states(cache)
         for i in range(_n_layers(params["layers"])):
             x = _zamba_super(cfg, layer(params["layers"], i), params["shared"], x,
                              positions, layer(cache["layers"], i),

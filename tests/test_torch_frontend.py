@@ -92,7 +92,7 @@ COPIED = (
     "core/analysis/ir_verifier.py", "core/analysis/schedule_verifier.py",
     "core/analysis/hazards.py", "analyze.py",
     "serve/signature.py", "serve/cache.py", "serve/metrics.py",
-    "serve/server.py",
+    "serve/server.py", "distributed/fault.py",
 )
 
 

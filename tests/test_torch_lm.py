@@ -139,8 +139,9 @@ def test_serve_requests_matches_reference_loop(arch, mesh):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, rng.integers(4, max_prompt + 1)).astype(np.int32)
                for _ in range(n_req)]
+    # float32 caches, as the reference loop's (dtype_override="float32")
     res = serve_requests(cfg, tp, prompts, batch=batch, max_prompt=max_prompt,
-                         max_new=max_new, device="cpu")
+                         max_new=max_new, device="cpu", dtype="float32")
 
     step = jax.jit(j_make_decode_step(jcfg, mesh))
     queue, want = list(prompts), []

@@ -211,8 +211,9 @@ def test_serve_requests_matches_reference_loop(arch, mesh):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, rng.integers(4, max_prompt + 1)).astype(np.int32)
                for _ in range(n_req)]
+    # float32 caches, as the reference loop's (dtype_override="float32")
     res = serve_requests(cfg, tp, prompts, batch=batch, max_prompt=max_prompt,
-                         max_new=max_new, device="cpu")
+                         max_new=max_new, device="cpu", dtype="float32")
     want = _reference_serve(jcfg, mesh, jp, prompts, batch, max_prompt, max_new)
     assert len(res["tokens"]) == len(want)
     for got, exp in zip(res["tokens"], want):
