@@ -115,16 +115,35 @@ Phases, each printing one JSON line or more:
    width, 1 x 512) in bf16 with fp32 moments: finite losses, step seconds,
    tokens/s, peak memory, the device busy share of a step
    (``torch.profiler``); then a checkpoint of a 2-layer bf16 cut after step
-   1, restored bit for bit, and step 2 from it equal to step 2 without it.
+   1, restored bit for bit, and step 2 from it equal to step 2 without it;
+13. GNN training (``launch/train_gnn.py``, ``examples/train_gnn.py``'s
+   counterpart, fp32): the example's 3-layer GCN at width 512 on its graph
+   (4,000 vertices, 16,000 power-law edges, 4 x 4 tiles), the loss and
+   gradients through ``PipelinedRunner``'s scan path against autograd
+   through ``run_reference``, leaf by leaf, then two ``gnn_train_step``s of
+   each (losses, moments, params by ``_adamw_param_limit``;
+   ``GNN_GRAD_TOL``); 20 steps at width 8192 (67.8 M params) on that graph
+   and on ``paper_graph("ak2010")`` (45,293 / 108,549): losses finite and
+   falling at the end, the median warm step by CUDA events, vertices x
+   epochs a second, peak memory, the device busy share of a step and its
+   largest device ops (``torch.profiler``); then on 8 x 8 tiles of the
+   example's graph, where padded edge slots read rows without an edge,
+   2-layer gat and gcn (width 128) gradients through the scan path and
+   through ``ShardedRunner`` over ``[cuda:0] * 4`` against
+   ``run_reference``'s, 1-layer gin with kernel dispatch on COO and CSR
+   tiles against the scan path and one ``gnn_train_step`` through each
+   SpMM kernel, and 1-layer gcn and gat with kernel dispatch, which must
+   refuse a gradient (``NotImplementedError``).
 
 Launch counters are set to 0 before phase 4 and read after phase 5, set to
 0 again before phase 7 and read after it, and likewise around each of
-phases 8, 9 and 10 and around phase 12's two full-size training runs; phase
-11 adds up the launches of its sharded calls alone, leaving out the
-unsharded baselines it runs beside them.  Every kernel must have launched
-on its path (in phases 8 and 11 all four tile kernels; in phase 7 flash on
-every family but ssm; in phase 12 flash for both models, the grouped FFN
-for deepseek).  Then one ``{"kernels": [...]}`` line (all six,
+phases 8, 9 and 10, around phase 12's two full-size training runs and
+around each of phase 13's gin steps; phase 11 adds up the launches of its
+sharded calls alone, leaving out the unsharded baselines it runs beside
+them.  Every kernel must have launched on its path (in phases 8 and 11 all
+four tile kernels; in phase 7 flash on every family but ssm; in phase 12
+flash for both models, the grouped FFN for deepseek; in phase 13 the COO
+SpMM on COO tiles and the CSR SpMM on CSR tiles).  Then one ``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
@@ -233,6 +252,15 @@ TRAIN_SHAPES = {"dense": (4, 1024), "moe": (1, 512)}
 # magnitude (LM_KERNEL_TOL), which the backward carries into the gradients
 # at that order; 1e-4 leaves 10x.
 TRAIN_PARITY_TOL = 1e-4
+# GNN training (phase 13): each gradient leaf within GNN_GRAD_TOL x max(1,
+# max|g_ref|) of the oracle's, the engines' forward tolerance (MODEL_TOL's
+# gcn); losses (relative) and moments (of their leaf's largest entry) of
+# two steps within it, params within the sum of both steps'
+# _adamw_param_limit at it.  Full width: examples/train_gnn.py's setting
+# for real hardware.
+GNN_GRAD_TOL = 5e-4
+GNN_TRAIN_WIDTH = 8192
+GNN_TRAIN_STEPS = 20
 WHISPER_DECODER_LEN = 448      # whisper's decoder context (max target positions)
 XLSTM_PREFILL_LEN = 1024       # the sLSTM runs one step per token
 # Off the path: shapes that reach the tail paths of the COO tile SpMM
@@ -2040,6 +2068,237 @@ def checkpoint_roundtrip(cfg, dev, *, batch, seq):
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13: GNN training through the scan path
+# ---------------------------------------------------------------------------
+
+def _gnn_grads(run, inputs, labels, params):
+    """The training loss through ``run`` and its gradients, by name."""
+    import torch
+    from repro_torch.launch.train_gnn import gnn_loss
+    loss = gnn_loss(run(inputs, params)[0], labels)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def _grad_err_over_limit(got, want) -> float:
+    """The worst leaf's |got - want| over GNN_GRAD_TOL x max(1, max|want|);
+    inf where ``got`` is not finite."""
+    import torch
+    worst = 0.0
+    for k, w in want.items():
+        if not bool(torch.isfinite(got[k]).all()):
+            return float("inf")
+        lim = GNN_GRAD_TOL * max(1.0, float(w.abs().max()))
+        worst = max(worst, float((got[k] - w).abs().max()) / lim)
+    return worst
+
+
+def _fresh(params):
+    return {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+
+
+def gnn_oracle_parity(g, dev, *, width=512):
+    """The example's 3-layer GCN at ``width`` on ``g``: the loss and
+    gradients through ``PipelinedRunner``'s scan path against autograd
+    through ``run_reference``, leaf by leaf; then two ``gnn_train_step``s of
+    each from the same params: losses (relative), moments (of their leaf's
+    largest entry) and params (over the sum of both steps'
+    ``_adamw_param_limit``)."""
+    import torch
+    from repro_torch.core.executor import run_reference
+    from repro_torch.launch.train_gnn import (LR, gnn_train_step, init_problem,
+                                              scan_runner, trace_mlp_gcn)
+    from repro_torch.optim.adamw import adamw_init
+
+    tr = trace_mlp_gcn(width, 16)
+    runs = {"scan": scan_runner(tr, g, dev),
+            "oracle": lambda i, p: run_reference(tr, g, i, p, device=dev)}
+    params, inputs, labels = init_problem(tr, g, 16, dev)
+    loss_s, grads_s = _gnn_grads(runs["scan"], inputs, labels, params)
+    loss_o, grads_o = _gnn_grads(runs["oracle"], inputs, labels, params)
+    grad_ratio = _grad_err_over_limit(grads_s, grads_o)
+    steps = {}
+    for label, run in runs.items():
+        p = _fresh(params)
+        opt = adamw_init(p)
+        losses, moments = [], []
+        for _ in range(2):
+            loss, _, opt = gnn_train_step(run, inputs, labels, p, opt)
+            losses.append(float(loss))
+            moments.append({k: (opt.m[k].clone(), opt.v[k].clone()) for k in p})
+        steps[label] = (p, losses, moments)
+    (ps, ls, ms), (po, lo, mo) = steps["scan"], steps["oracle"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lo))
+    moment = max(float((a - b).abs().max()) / max(1e-30, float(b.abs().max()))
+                 for s in range(2) for k in params
+                 for a, b in zip(ms[s][k], mo[s][k]))
+    param_ratio = 0.0
+    for k in params:
+        limit = sum(_adamw_param_limit(po[k].detach(), *mo[s][k], LR, s + 1,
+                                       GNN_GRAD_TOL) for s in range(2))
+        param_ratio = max(param_ratio,
+                          float(((ps[k] - po[k]).detach().abs() / limit).max()))
+    row = dict(model="gcn3", width=width, graph=g.name, vertices=g.n_vertices,
+               edges=g.n_edges, loss=loss_s, oracle_loss=loss_o,
+               grad_err_over_limit=grad_ratio, step_losses=ls, oracle_step_losses=lo,
+               step_loss_rel_err=loss_rel, moment_err=moment,
+               param_err_over_limit=param_ratio, tol=GNN_GRAD_TOL)
+    emit(dict(phase="gnn_training_parity", **row))
+    require(grad_ratio <= 1.0 and loss_rel <= GNN_GRAD_TOL
+            and moment <= GNN_GRAD_TOL and param_ratio <= 1.0,
+            f"GNN training through the scan path vs the oracle: {row}")
+
+
+def gnn_train_run(g, dev, *, width=GNN_TRAIN_WIDTH, steps=GNN_TRAIN_STEPS):
+    """``steps`` steps of the example's loop at ``width`` on ``g``: losses
+    (finite, the mean of the last five below the mean of the five before),
+    the median warm step by CUDA events, vertices x epochs a second, peak
+    memory, and the device busy share of the last step (``torch.profiler``'s
+    device time over the median warm step) with its largest device ops.
+    The loss is not held below its start: the recipe's first AdamW steps
+    at a rate of 3e-3 raise it at this width before it falls, as the
+    reference's own loop does at width 2,048
+    (``tests/test_torch_gnn_train.py``)."""
+    import torch
+    from repro_torch.launch.train_gnn import (gnn_train_step, init_problem,
+                                              scan_runner, trace_mlp_gcn)
+    from repro_torch.optim.adamw import adamw_init
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = trace_mlp_gcn(width, 16)
+    runner = scan_runner(tr, g, dev)
+    params, inputs, labels = init_problem(tr, g, 16, dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    box = {"opt": opt}
+    losses, step_s = [], []
+
+    def step():
+        loss, gnorm, box["opt"] = gnn_train_step(runner, inputs, labels, params,
+                                                 box["opt"])
+        box["loss"] = loss
+
+    for _ in range(steps - 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        step_s.append(start.elapsed_time(end) / 1e3)
+        losses.append(float(box["loss"]))
+    prof = device_breakdown(step)
+    losses.append(float(box["loss"]))
+    warm = statistics.median(step_s[1:])
+    tiles = runner.tiles
+    row = dict(model="gcn3", width=width, graph=g.name, vertices=g.n_vertices,
+               edges=g.n_edges, tiles=tiles.n_tiles, s_max=tiles.s_max,
+               e_max=tiles.e_max, params=sum(p.numel() for p in params.values()),
+               steps=steps, losses=losses, init_s=init_s, step_s=step_s,
+               first_step_s=step_s[0], warm_step_s=warm,
+               vertex_epochs_per_s=g.n_vertices / warm,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               device_busy_share=None if prof is None else prof["device_ms"] / 1e3 / warm,
+               profile=prof)
+    emit(dict(phase="gnn_training", **row))
+    require(all(v == v and abs(v) != float("inf") for v in losses),
+            f"GNN training on {g.name}: losses {losses}")
+    require(statistics.mean(losses[-5:]) < statistics.mean(losses[-10:-5]),
+            f"GNN training on {g.name}: losses do not fall: {losses}")
+    del runner, params, inputs, labels, box
+    torch.cuda.empty_cache()
+    return row
+
+
+def gnn_kernel_and_sharded_checks(g, dev, *, width=WIDTH, n_shards=4):
+    """On 8 x 8 tiles of ``g`` (where padded edge slots of the scan path
+    read rows without an edge): 2-layer gat's and gcn's gradients through
+    the scan path and through ``ShardedRunner`` over ``n_shards`` logical
+    shards of ``dev`` against ``run_reference``'s; 1-layer gin with kernel
+    dispatch on COO and CSR tiles (its SpMM reads only the input) against
+    the scan path, then one ``gnn_train_step`` each, the SpMM kernel
+    launching in it; 1-layer gcn and gat with kernel dispatch must refuse
+    a gradient.  Returns the tile kernels' launches by layout."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compiler
+    from repro_torch.core.executor import run_reference
+    from repro_torch.core.pipeline import PipelinedRunner, ShardedRunner
+    from repro_torch.core.tiling import grid_tile
+    from repro_torch.gnn import models as M
+    from repro_torch.kernels.tile_spmm import kernel as K
+    from repro_torch.launch.train_gnn import gnn_train_step
+    from repro_torch.optim.adamw import adamw_init
+
+    tiles = {layout: grid_tile(g, 8, 8, sparse=True, layout=layout)
+             for layout in ("coo", "csr")}
+    labels = torch.as_tensor(np.random.default_rng(0).integers(0, width, g.n_vertices),
+                             device=dev)
+
+    def problem(tr):
+        return (_fresh({k: torch.as_tensor(v, device=dev)
+                        for k, v in M.init_params(tr, seed=0).items()}),
+                {k: torch.as_tensor(v, device=dev)
+                 for k, v in M.init_inputs(tr, g, seed=0).items()})
+
+    rows = {}
+    for name in ("gat", "gcn"):
+        tr = M.trace_stacked(name, 2, width, width, width)
+        c = compiler.compile_gnn(tr)
+        params, inputs = problem(tr)
+        _, want = _gnn_grads(lambda i, p: run_reference(tr, g, i, p, device=dev),
+                             inputs, labels, params)
+        for label, run in (
+                ("scan", PipelinedRunner(c, g, tiles["coo"], kernel_dispatch=False,
+                                         device=dev)),
+                (f"sharded_{n_shards}", ShardedRunner(
+                    c, g, tiles["coo"], n_shards, kernel_dispatch=False,
+                    devices=[dev] * n_shards, device=dev))):
+            _, got = _gnn_grads(run, inputs, labels, params)
+            rows[f"{name}_x2/{label}"] = _grad_err_over_limit(got, want)
+
+    launches = {}
+    tr = M.trace_named("gin", width, width)
+    c = compiler.compile_gnn(tr)
+    for layout, ts in tiles.items():
+        params, inputs = problem(tr)
+        kernel = PipelinedRunner(c, g, ts, kernel_dispatch=True, device=dev)
+        scan = PipelinedRunner(c, g, ts, kernel_dispatch=False, device=dev)
+        _, want = _gnn_grads(scan, inputs, labels, params)
+        _, got = _gnn_grads(kernel, inputs, labels, params)
+        rows[f"gin/kernels_{layout}"] = _grad_err_over_limit(got, want)
+        K.reset_launches()
+        loss, _, _ = gnn_train_step(kernel, inputs, labels, params, adamw_init(params))
+        torch.cuda.synchronize()
+        launches[layout] = dict(K.LAUNCHES)
+        require(loss == loss, f"gin step with kernels on {layout} tiles: loss {loss}")
+    refused = {}
+    for name in ("gcn", "gat"):
+        tr = M.trace_named(name, width, width)
+        params, inputs = problem(tr)
+        kernel = PipelinedRunner(compiler.compile_gnn(tr), g, tiles["coo"],
+                                 kernel_dispatch=True, device=dev)
+        try:
+            _gnn_grads(kernel, inputs, labels, params)
+            refused[name] = False
+        except NotImplementedError:
+            refused[name] = True
+    emit(dict(phase="gnn_training_checks", graph=g.name, tiles=tiles["coo"].n_tiles,
+              width=width, grad_err_over_limit=rows, tol=GNN_GRAD_TOL,
+              launches=launches, kernel_dispatch_refused=refused))
+    require(all(v <= 1.0 for v in rows.values()), f"GNN gradients: {rows}")
+    require(launches["coo"]["tile_spmm"] > 0 and launches["csr"]["tile_spmm_csr"] > 0,
+            f"the SpMM kernels were not launched training gin: {launches}")
+    require(all(refused.values()), f"a kernel-dispatched gradient was not refused: {refused}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2206,6 +2465,17 @@ def main() -> int:
     require(train_launches["deepseek-v2-236b_x2"]["grouped_ffn"] > 0,
             "the grouped FFN kernel was not launched training deepseek-v2-236b_x2")
     checkpoint_roundtrip(two_layers, dev, batch=2, seq=256)
+
+    # 13. GNN training through the scan path: oracle parity, the example at
+    # full width on its graph and on ak2010, 1-layer gin through the SpMM
+    # kernels (launch counts), the refusals, and sharded gradients
+    from repro_torch.launch.train_gnn import make_graph
+    gnn_graph = make_graph()
+    gnn_oracle_parity(gnn_graph, dev)
+    for g in (gnn_graph, make_graph("ak2010")):
+        gnn_train_run(g, dev)
+    gnn_launches = gnn_kernel_and_sharded_checks(gnn_graph, dev)
+    emit(dict(phase="gnn_training_launches", by_layout=gnn_launches))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

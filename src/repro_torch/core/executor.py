@@ -101,7 +101,8 @@ def run_reference(tr, graph: Graph, inputs: Dict, params: Dict,
                   device: Optional[Union[str, torch.device]] = None
                   ) -> List[Array]:
     """Evaluate trace ``tr`` over the whole graph on ``device`` (``cuda``
-    unless named).  ``inputs``/``params`` may be numpy or tensors."""
+    unless named).  ``inputs``/``params`` may be numpy or tensors; autograd
+    records the run when a tensor given requires grad."""
     dev = resolve(device)
     src = torch.as_tensor(graph.src, device=dev).long()
     dst = torch.as_tensor(graph.dst, device=dev).long()
@@ -109,43 +110,42 @@ def run_reference(tr, graph: Graph, inputs: Dict, params: Dict,
     params = {k: to_device(v, dev) for k, v in params.items()}
     env: Dict[int, Array] = {}
     outs: List[Array] = []
-    with torch.inference_mode():
-        for n in tr.nodes:
-            if n.op == "param":
-                continue
-            if n.op == "input":
-                env[n.id] = to_device(inputs[n.attrs["name"]], dev)
-            elif n.op == "output":
-                outs.append(env[n.inputs[0]])
-            elif n.op == "scatter_src":
-                env[n.id] = env[n.inputs[0]][src]
-            elif n.op == "scatter_dst":
-                env[n.id] = env[n.inputs[0]][dst]
-            elif n.op == "gather":
-                e = env[n.inputs[0]]
-                red = n.attrs["reduce"]
-                if red == "sum":
-                    env[n.id] = e.new_zeros((V, e.shape[1])).index_add_(0, dst, e)
-                elif red == "max":
-                    # empty segments -> -1e30, not -inf
-                    env[n.id] = e.new_full((V, e.shape[1]), _NEG_INF).scatter_reduce_(
-                        0, dst[:, None].expand_as(e), e, "amax", include_self=True)
-                elif red == "mean":
-                    s = e.new_zeros((V, e.shape[1])).index_add_(0, dst, e)
-                    c = e.new_zeros((V, 1)).index_add_(0, dst, e.new_ones((e.shape[0], 1)))
-                    env[n.id] = s / c.clamp_min(1.0)
-                else:
-                    raise ValueError(red)
-            elif n.op in ("matmul", "gemv", "bias_add"):
-                w = tr.node(n.inputs[1])
-                env[n.id] = apply_compute(n.op, {"weight": w.attrs["name"]}, params,
-                                          [env[n.inputs[0]]])
-            elif n.op == "bmm_edge":
-                w = tr.node(n.inputs[1])
-                env[n.id] = apply_compute("bmm_edge", {"weight": w.attrs["name"]}, params,
-                                          [env[n.inputs[0]], env[n.inputs[2]]])
+    for n in tr.nodes:
+        if n.op == "param":
+            continue
+        if n.op == "input":
+            env[n.id] = to_device(inputs[n.attrs["name"]], dev)
+        elif n.op == "output":
+            outs.append(env[n.inputs[0]])
+        elif n.op == "scatter_src":
+            env[n.id] = env[n.inputs[0]][src]
+        elif n.op == "scatter_dst":
+            env[n.id] = env[n.inputs[0]][dst]
+        elif n.op == "gather":
+            e = env[n.inputs[0]]
+            red = n.attrs["reduce"]
+            if red == "sum":
+                env[n.id] = e.new_zeros((V, e.shape[1])).index_add_(0, dst, e)
+            elif red == "max":
+                # empty segments -> -1e30, not -inf
+                env[n.id] = e.new_full((V, e.shape[1]), _NEG_INF).scatter_reduce_(
+                    0, dst[:, None].expand_as(e), e, "amax", include_self=True)
+            elif red == "mean":
+                s = e.new_zeros((V, e.shape[1])).index_add_(0, dst, e)
+                c = e.new_zeros((V, 1)).index_add_(0, dst, e.new_ones((e.shape[0], 1)))
+                env[n.id] = s / c.clamp_min(1.0)
             else:
-                env[n.id] = apply_compute(n.op, n.attrs, params, [env[i] for i in n.inputs])
+                raise ValueError(red)
+        elif n.op in ("matmul", "gemv", "bias_add"):
+            w = tr.node(n.inputs[1])
+            env[n.id] = apply_compute(n.op, {"weight": w.attrs["name"]}, params,
+                                      [env[n.inputs[0]]])
+        elif n.op == "bmm_edge":
+            w = tr.node(n.inputs[1])
+            env[n.id] = apply_compute("bmm_edge", {"weight": w.attrs["name"]}, params,
+                                      [env[n.inputs[0]], env[n.inputs[2]]])
+        else:
+            env[n.id] = apply_compute(n.op, n.attrs, params, [env[i] for i in n.inputs])
     return outs
 
 
@@ -339,8 +339,8 @@ class _TiledRun:
                         if g.acc.kind == "mean":
                             acc_cnt[cid].index_add_(
                                 0, edst_global, val.new_ones((ne, 1)))
-                    else:
-                        acc_max[cid].scatter_reduce_(
+                    else:   # out of place: the backward reads the old max
+                        acc_max[cid] = acc_max[cid].scatter_reduce(
                             0, edst_global[:, None].expand_as(val), val,
                             "amax", include_self=True)
 
@@ -364,10 +364,10 @@ def run_tiled(compiled: C.CompiledGNN, graph: Graph, tiles: TileSet,
     (``cuda`` unless named); returns the outputs as tensors there.
 
     ``kernel_dispatch=False`` forces every gather block onto the scan path
-    (the paper's pure multi-phase schedule, no kernel blocks).
+    (the paper's pure multi-phase schedule, no kernel blocks), which
+    autograd differentiates; a kernel block refuses a gradient
+    (:func:`~repro_torch.core.pipeline.kernel_gather`).
     ``inputs``/``params`` may be numpy or tensors.
     """
-    run = _TiledRun(compiled, graph, tiles, inputs, params,
-                    kernel_dispatch=kernel_dispatch, device=device)
-    with torch.inference_mode():
-        return run.run()
+    return _TiledRun(compiled, graph, tiles, inputs, params,
+                     kernel_dispatch=kernel_dispatch, device=device).run()

@@ -158,7 +158,18 @@ def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
     softmax, weights for weighted SpMM, ``None`` for pure SpMM — and the
     batch's operands ``kc`` (:func:`softmax_const` / :func:`bucket_const`)
     and int64 tile arrays ``ta``.  Returns (P, Dmax, F); partitions without
-    a tile in the batch are zero."""
+    a tile in the batch are zero.
+
+    The kernels have no backward, as the reference's have none: where
+    autograd records and ``h`` or ``vals`` requires grad, this raises
+    ``NotImplementedError`` on every device, as the reference's ``jax.grad``
+    does through its kernel blocks."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (h, vals)):
+        raise NotImplementedError(
+            f"the {kernel} gather block has no backward: a gradient cannot "
+            "flow through a tile kernel; build the runner with "
+            "kernel_dispatch=False to train through the scan path")
     if kernel == S.KERNEL_SEGMENT_SOFTMAX:
         # the kernel walks the edge plan and gathers h[t, edge_src] itself:
         # no dense score block, no (T, E, F) value block; a partition
@@ -188,15 +199,34 @@ def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
     return torch.where(kc["pmask"][:, None, None], out, 0.0)
 
 
-def _with_dst(ta: Dict[str, Array], V: int) -> Dict[str, Array]:
-    """Tile operands plus the global destination row of every edge slot
-    (padded slots clamped to V - 1) and a (T, 1) tile index for batched
-    gathers."""
+def _with_dst(ta: Dict[str, Array], V: int, pid: str) -> Dict[str, Array]:
+    """Tile operands plus, for every (T, E) edge slot, its global
+    destination row (padded slots clamped to V - 1), and (T, 1) tile and
+    padded-layout partition (``ta[pid]``) indices for batched gathers."""
     xs = dict(ta)
     xs["dst_global"] = (ta["part_start"][ta["part_id"]][:, None]
                         + ta["edge_dst"]).clamp(max=V - 1)
     xs["tile"] = torch.arange(ta["part_id"].shape[0],
                               device=ta["part_id"].device)[:, None]
+    xs["edge_part"] = ta[pid][:, None]
+    return xs
+
+
+def _real_edges(ta: Dict[str, Array], pid: str) -> Dict[str, Array]:
+    """The operands :func:`_with_dst` gives, for the real edge slots only,
+    as flat (N,) vectors in (tile, slot) order.  An edge block evaluated on
+    them computes nothing on padded slots, whose values (read from rows the
+    slot does not belong to) could be non-finite and would turn a zero
+    cotangent into NaN."""
+    E = ta["edge_src"].shape[1]
+    emask = (torch.arange(E, device=ta["n_edge"].device)[None, :]
+             < ta["n_edge"][:, None])
+    tile, slot = emask.nonzero(as_tuple=True)
+    xs = {k: ta[k][tile, slot] for k in ("edge_src", "edge_dst", "edge_gid")}
+    xs["src_ids"] = ta["src_ids"]
+    xs["tile"] = tile
+    xs["edge_part"] = ta[pid][tile]
+    xs["dst_global"] = ta["part_start"][ta["part_id"][tile]] + xs["edge_dst"]
     return xs
 
 
@@ -217,19 +247,20 @@ def _init_gather_acc(scan_gathers, n_rows: int, device) -> Dict[str, Array]:
     return acc
 
 
-def _gather_accumulate(acc: Dict[str, Array], g, val: Array, emask: Array,
+def _gather_accumulate(acc: Dict[str, Array], g, v: Array,
                        dest: Array) -> None:
-    """Fold the real edges' values ``val[emask]`` of every tile into the
-    accumulator rows ``dest`` (in place), one batched scatter."""
+    """Fold the real edges' values ``v`` (N, dim) of every tile into the
+    accumulator rows ``dest``, one batched scatter.  Sums add in place; a
+    max replaces its accumulator, since autograd's backward of an ``amax``
+    reads the accumulator as it was before the scatter."""
     cid = g.acc.comm_id
-    v = val[emask]
     if g.acc.kind in ("sum", "mean"):
         acc[f"sum{cid}"].index_add_(0, dest, v)
         if g.acc.kind == "mean":
             acc[f"cnt{cid}"].index_add_(0, dest, v.new_ones((v.shape[0], 1)))
     else:
-        acc[f"max{cid}"].scatter_reduce_(0, dest[:, None].expand_as(v), v,
-                                         "amax", include_self=True)
+        acc[f"max{cid}"] = acc[f"max{cid}"].scatter_reduce(
+            0, dest[:, None].expand_as(v), v, "amax", include_self=True)
 
 
 def _drain_gather_acc(acc: Dict[str, Array], g, P: int, dmax: int) -> Array:
@@ -303,7 +334,9 @@ class _Interpreter:
         return env
 
     def edge_env(self, nodes, xs, senv):
-        """Edge-block evaluation over every tile of ``xs`` at once."""
+        """Edge-block evaluation over every tile of ``xs`` at once: over
+        its (T, E) slots (:func:`_with_dst`) or its real edges
+        (:func:`_real_edges`)."""
         eenv: Dict[int, Array] = {}
 
         def elookup(nid):
@@ -320,7 +353,7 @@ class _Interpreter:
                 local = self.pstore.get(src_nid, self.dstore.get(src_nid))
                 if local is not None:
                     # the destination's own partition rows: no exchange
-                    eenv[n.id] = local[xs[self.pid][:, None], xs["edge_dst"]]
+                    eenv[n.id] = local[xs["edge_part"], xs["edge_dst"]]
                 else:
                     eenv[n.id] = self.vstore[src_nid][xs["dst_global"]]
             else:
@@ -353,7 +386,7 @@ class _Interpreter:
                 # per-edge scores and the source replica h (T, S, F) of the
                 # unbucketed batch
                 ta0, kc0 = softmax
-                xs0 = _with_dst(ta0, V)
+                xs0 = _with_dst(ta0, V, self.pid)
                 senv = self.eval_vertex(xs0["src_ids"], phase.src.nodes)
                 h = self.src_value(senv, g.src_value_id,
                                    xs0["src_ids"]).contiguous()
@@ -369,26 +402,25 @@ class _Interpreter:
                 xsrc = self.src_value(senv, g.src_value_id,
                                       ta["src_ids"]).contiguous()
                 w = (None if g.kernel == S.KERNEL_SPMM else
-                     self.edge_values(g, g.weight_id, _with_dst(ta, V), senv))
+                     self.edge_values(g, g.weight_id,
+                                      _with_dst(ta, V, self.pid), senv))
                 total += kernel_gather(g.kernel, layout, kc, ta, xsrc, w,
                                        n_parts, dmax)
             done(g, total)
 
-        # scan-tagged gathers: one batched scatter per bucket into
-        # accumulators shared across buckets
+        # scan-tagged gathers: the edge block on each bucket's real edges,
+        # one batched scatter per bucket into accumulators shared across
+        # buckets
         scan_gathers = phase.scan_gathers()
         if scan_gathers:
             acc = _init_gather_acc(scan_gathers, n_parts * dmax, dev)
             for ta, _ in batches:
-                xs = _with_dst(ta, V)
-                emask = (torch.arange(ta["edge_src"].shape[1], device=dev)[None, :]
-                         < ta["n_edge"][:, None])
+                xs = _real_edges(ta, self.pid)
                 senv = self.eval_vertex(xs["src_ids"], phase.src.nodes)
                 _, elookup = self.edge_env(phase.edge.nodes, xs, senv)
-                dest = (ta[self.pid][:, None] * dmax + ta["edge_dst"])[emask]
+                dest = xs["edge_part"] * dmax + xs["edge_dst"]
                 for g in scan_gathers:
-                    _gather_accumulate(acc, g, elookup(g.acc.value_id),
-                                       emask, dest)
+                    _gather_accumulate(acc, g, elookup(g.acc.value_id), dest)
             for g in scan_gathers:
                 done(g, _drain_gather_acc(acc, g, n_parts, dmax))
 
@@ -408,6 +440,11 @@ class PipelinedRunner:
 
     ``device`` is ``cuda`` unless the caller names another (the tests pass
     ``"cpu"``, where the kernels' plain versions run).
+
+    Autograd records a call when a tensor given requires grad.  The scan
+    path differentiates; a kernel-tagged gather refuses a gradient
+    (:func:`kernel_gather`), so a runner that trains is built with
+    ``kernel_dispatch=False``.  Serving runs under inference mode.
     """
 
     def __init__(self, compiled: C.CompiledGNN, graph: Graph, tiles,
@@ -484,8 +521,7 @@ class PipelinedRunner:
             operands = self._operands
         inputs = {k: to_device(v, self.device) for k, v in inputs.items()}
         params = {k: to_device(v, self.device) for k, v in params.items()}
-        with torch.inference_mode():
-            return self._run(inputs, params, *operands)
+        return self._run(inputs, params, *operands)
 
     def run_with(self, tiles, inputs: Dict, params: Dict,
                  reordering=None) -> List[Array]:
@@ -1041,9 +1077,7 @@ class ShardedRunner:
                                {k: to_device(v, dev) for k, v in params.items()})
         shards = [by_dev[self.mesh.shard_device(k)]
                   for k in range(self.n_devices)]
-        with torch.inference_mode():
-            outs = self._run(shards, operands)
-        return [o.to(self.device) for o in outs]
+        return [o.to(self.device) for o in self._run(shards, operands)]
 
     def run_with(self, tiles, inputs: Dict, params: Dict,
                  reordering=None) -> List[Array]:

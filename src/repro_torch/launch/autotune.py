@@ -271,37 +271,38 @@ def confirm_wallclock(compiled: C.CompiledGNN, graph: Graph,
     inputs = {k: to_device(v, dev) for k, v in inputs.items()}
     params = {k: to_device(v, dev) for k, v in params.items()}
     confirmed: List[Trial] = []
-    for t in list(trials)[:max(1, top)]:
-        cfg = t.config
-        tiles, ro = build_tiles(graph, cfg)
-        n_dev = min(cfg.n_shards, len(devices))
-        if n_dev > 1:
-            runner = ShardedRunner(compiled, ro.graph, tiles, n_dev,
-                                   mode=cfg.shard_mode, devices=devices,
-                                   kernel_dispatch=kernel_dispatch,
-                                   reordering=ro, device=dev)
-        else:
-            runner = PipelinedRunner(compiled, ro.graph, tiles,
-                                     kernel_dispatch=kernel_dispatch,
-                                     reordering=ro, device=dev)
-        runner(inputs, params)                               # bind + warm
-        times = []
-        for _ in range(max(1, repeats)):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                runner(inputs, params)
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end) / 1e3)
+    with torch.inference_mode():    # timing records no autograd graph
+        for t in list(trials)[:max(1, top)]:
+            cfg = t.config
+            tiles, ro = build_tiles(graph, cfg)
+            n_dev = min(cfg.n_shards, len(devices))
+            if n_dev > 1:
+                runner = ShardedRunner(compiled, ro.graph, tiles, n_dev,
+                                       mode=cfg.shard_mode, devices=devices,
+                                       kernel_dispatch=kernel_dispatch,
+                                       reordering=ro, device=dev)
             else:
-                t0 = time.perf_counter()
-                runner(inputs, params)
-                times.append(time.perf_counter() - t0)
-        t.wall_s = float(np.median(times))
-        confirmed.append(t)
+                runner = PipelinedRunner(compiled, ro.graph, tiles,
+                                         kernel_dispatch=kernel_dispatch,
+                                         reordering=ro, device=dev)
+            runner(inputs, params)                               # bind + warm
+            times = []
+            for _ in range(max(1, repeats)):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    runner(inputs, params)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end) / 1e3)
+                else:
+                    t0 = time.perf_counter()
+                    runner(inputs, params)
+                    times.append(time.perf_counter() - t0)
+            t.wall_s = float(np.median(times))
+            confirmed.append(t)
     return confirmed
 
 

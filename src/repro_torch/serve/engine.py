@@ -314,7 +314,8 @@ class InferenceServer:
                                              kernel_dispatch=self.kernel_dispatch,
                                              reordering=ro, device=self.device),
                 owner=self.cache_owner)
-        outs = runner.run_with(tiles, merged_inputs, params, reordering=ro)
+        with torch.inference_mode():    # serving records no autograd graph
+            outs = runner.run_with(tiles, merged_inputs, params, reordering=ro)
         with self._stats_lock:
             self._batches_run += 1
 

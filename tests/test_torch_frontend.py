@@ -125,7 +125,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.launch.serve, repro_torch.launch.steps, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.moe_dispatch.ops, repro_torch.serve.server, "
-            "repro_torch.launch.autotune, repro_torch.analyze\n"
+            "repro_torch.launch.autotune, repro_torch.launch.train_gnn, "
+            "repro_torch.analyze\n"
             # a 2-shard pass on the CPU loads nothing of jax or repro either
             "from repro_torch.core import compiler, pipeline, tiling\n"
             "from repro_torch.gnn import graphs, models\n"
