@@ -133,17 +133,37 @@ Phases, each printing one JSON line or more:
    ``run_reference``'s, 1-layer gin with kernel dispatch on COO and CSR
    tiles against the scan path and one ``gnn_train_step`` through each
    SpMM kernel, and 1-layer gcn and gat with kernel dispatch, which must
-   refuse a gradient (``NotImplementedError``).
+   refuse a gradient (``NotImplementedError``);
+14. the mesh across processes and expert-parallel MoE: one NCCL rank
+   (``init_process_group`` on a ``FileStore`` under ``build/``; the card
+   holds one, and NCCL refuses two ranks on a GPU, so this checks the code
+   path and says nothing about scaling) running 2-layer gcn and gat on
+   phase 5's CSR tiles through ``ShardMesh.from_process_group()``, bit for
+   bit against the one-process single-shard run with the census's
+   exchanges, every group collective (fp8 ``all_to_all`` included) and
+   deepseek-v2's MoE layer (full width, 1 x 512) through the group mesh
+   against the one-process mesh, then ``compressed_psum`` on deepseek-v2
+   x2's gradient shapes
+   (bf16, a leaf at a time) bit for bit against ``dequantize(quantize(g))``
+   and its residual; then ``lm.forward(mesh=...)`` of deepseek-v2 x2 (full
+   width, bf16, a 1 x 512 prefill) over (data, model) meshes of logical
+   shards of the card — (1, 1), (2, 1), (4, 1), (2, 2), and (2, 2) under
+   ``moe_rs_combine`` and under ``moe_fp8_dispatch`` — the grouped FFN at
+   each mesh's shapes against its plain version (``LM_KERNEL_TOL``), (1, 1)
+   against ``mesh=None``, with dropped assignments, collectives, flash and
+   grouped-FFN launches per forward, seconds and peak memory.
 
 Launch counters are set to 0 before phase 4 and read after phase 5, set to
 0 again before phase 7 and read after it, and likewise around each of
 phases 8, 9 and 10, around phase 12's two full-size training runs and
-around each of phase 13's gin steps; phase 11 adds up the launches of its
-sharded calls alone, leaving out the unsharded baselines it runs beside
-them.  Every kernel must have launched on its path (in phases 8 and 11 all
+around each of phase 13's gin steps and phase 14's two parts; phases 11
+and 14 add up the launches of their sharded or meshed calls alone, leaving
+out the baselines and kernel checks they run beside them.  Every kernel must have launched on its path (in phases 8 and 11 all
 four tile kernels; in phase 7 flash on every family but ssm; in phase 12
 flash for both models, the grouped FFN for deepseek; in phase 13 the COO
-SpMM on COO tiles and the CSR SpMM on CSR tiles).  Then one ``{"kernels": [...]}`` line (all six,
+SpMM on COO tiles and the CSR SpMM on CSR tiles; in phase 14 the CSR
+SpMM and softmax on the process group, flash and the grouped FFN on the
+meshes).  Then one ``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
@@ -2299,6 +2319,294 @@ def gnn_kernel_and_sharded_checks(g, dev, *, width=WIDTH, n_shards=4):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh across processes (one NCCL rank) and expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+def process_group_phase(whole, whole_tiles, grad_cfg, dev, *, width=WIDTH,
+                        repeats=3):
+    """One ``torch.distributed`` rank (NCCL on the card, gloo on the CPU)
+    with a ``FileStore`` under ``build/``: 2-layer gcn and gat on the whole
+    graph's tiles through ``ShardMesh.from_process_group()`` against the
+    one-process single-shard run, bit for bit, and its exchanges against
+    the census; every collective of the group backend (fp8 ``all_to_all``
+    included) against the one-process mesh's answer; ``grad_cfg``'s MoE
+    layer (full width, a 1 x 512 input) through the group mesh against the
+    one-process (1, 1) mesh, bit for bit under deterministic algorithms
+    (ROADMAP C.8); then ``compressed_psum`` over the rank's axis, a leaf at
+    a time, on gradients shaped like ``grad_cfg``'s parameters in their
+    dtype, against ``dequantize(quantize(g))`` and its residual, bit for
+    bit.  One rank says nothing about scaling.  Returns the tile kernels'
+    launches of the group runs."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import compiler
+    from repro_torch.core.analysis import exchange_census
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.core.pipeline import ShardedRunner
+    from repro_torch.distributed.compression import (compressed_psum, dequantize_grads,
+                                                     quantize_grads)
+    from repro_torch.gnn import models as M
+    from repro_torch.kernels.moe_dispatch import kernel as GK
+    from repro_torch.kernels.tile_spmm import kernel as K
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import materialize, torch_dtype, tree_items
+
+    if dev.type == "cuda":                  # NCCL binds the rank to one card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    store = ROOT / "build" / "pg_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1,
+                            **({"device_id": dev} if dev.type == "cuda" else {}))
+    launches = {}
+    try:
+        mesh = ShardMesh.from_process_group(device=dev)
+        # a collective through the backend before any timing: NCCL sets up
+        # its communicator on the first call
+        mesh.psum([torch.ones(1, device=dev)], "shards")
+        init_s = time.perf_counter() - t0
+        for name in ("gcn", "gat"):
+            tr = M.trace_stacked(name, 2, width, width, width)
+            c = compiler.compile_gnn(tr)
+            params = M.init_params(tr, seed=0)
+            inputs = M.init_inputs(tr, whole, seed=0)
+            census = exchange_census(c.schedule(True)).n_collectives
+            one = ShardedRunner(c, whole, whole_tiles, 1, mode="mincut",
+                                devices=[dev], device=dev)
+            with torch.no_grad():
+                (want,), one_s = _timed(lambda: one(inputs, params), dev, repeats)
+                mesh.collectives = 0
+                group = ShardedRunner(c, whole, whole_tiles, mode="mincut", mesh=mesh)
+                before = dict(K.LAUNCHES)
+                (got,), group_s = _timed(lambda: group(inputs, params), dev, repeats)
+                for k_, n in K.LAUNCHES.items():
+                    launches[k_] = launches.get(k_, 0) + n - before[k_]
+            per_pass = mesh.collectives / repeats
+            emit(dict(phase="process_group_sharded", backend=backend, world_size=1,
+                      model=f"{name}_x2", graph=whole.name, layout=whole_tiles.layout,
+                      bit_equal=bool(torch.equal(got, want)), exchanges_per_pass=per_pass,
+                      census=census, group_warm_s=statistics.median(group_s[1:]),
+                      group_runs_s=group_s, one_process_warm_s=statistics.median(one_s[1:]),
+                      one_process_runs_s=one_s, init_s=init_s))
+            require(torch.equal(got, want),
+                    f"process-group {name}: output differs from the one-process run")
+            require(per_pass == census,
+                    f"process-group {name}: {per_pass} exchanges a pass, census {census}")
+            del one, group, got, want
+        # each collective on the group against the one-process mesh
+        one = ShardMesh([dev], 1)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(1, 6, 8, generator=gen, device=dev)
+        calls = {"all_gather": lambda m: m.all_gather([x.reshape(-1)]),
+                 "all_to_all": lambda m: m.all_to_all([x], "data"),
+                 "all_to_all_fp8": lambda m: m.all_to_all(
+                     [x.to(torch.float8_e4m3fn)], "data"),
+                 "psum": lambda m: m.psum([x], "model"),
+                 "pmean": lambda m: m.pmean([x], "shards"),
+                 "psum_scatter": lambda m: m.psum_scatter([x], "model", 2),
+                 "all_gather_axis": lambda m: m.all_gather_axis([x], "data", 1)}
+        unequal = [name for name, call in calls.items()
+                   if not torch.equal(call(mesh)[0].float(), call(one)[0].float())]
+        # grad_cfg's MoE layer through the group mesh
+        p = materialize(gen, MOE.moe_template(grad_cfg), device=dev)
+        hx = torch.randn(1, 512, grad_cfg.d_model, generator=gen,
+                         device=dev).to(p["wg"].dtype)
+        ffn0 = GK.LAUNCHES["grouped_ffn"]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with torch.no_grad(), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                mesh.collectives = 0
+                (y_g, aux_g), moe_s = _timed(lambda: MOE.moe_layer(grad_cfg, p, hx, mesh=mesh),
+                                             dev, 1)
+                moe_collectives = mesh.collectives
+                moe_launches = GK.LAUNCHES["grouped_ffn"] - ffn0
+                y_1, aux_1 = MOE.moe_layer(grad_cfg, p, hx, mesh=one)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        moe_equal = bool(torch.equal(y_g, y_1) and torch.equal(aux_g, aux_1))
+        emit(dict(phase="process_group_collectives", backend=backend, world_size=1,
+                  unequal=unequal, moe=grad_cfg.name, moe_tokens=512,
+                  moe_bit_equal=moe_equal, moe_s=moe_s[0],
+                  moe_collectives=moe_collectives, moe_grouped_ffn_launches=moe_launches))
+        require(not unequal, f"group collectives differ from one process: {unequal}")
+        require(moe_equal, "the MoE layer through the group mesh differs from (1, 1)")
+        require(moe_launches > 0, "the grouped FFN did not launch on the group mesh")
+        del p, hx, y_g, y_1
+        # compressed_psum on grad_cfg's parameter shapes, a leaf at a time
+        mesh.collectives = 0
+        n_el, n_leaves, cp_s, worst = 0, 0, 0.0, []
+        for path, leaf in tree_items(lm.model_template(grad_cfg)):
+            g = {"g": (torch.randn(leaf.shape, generator=gen, device=dev) * 1e-3)
+                 .to(torch_dtype(leaf.dtype))}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (mean,), (res,) = compressed_psum([g], mesh, "shards")
+            torch.cuda.synchronize()
+            cp_s += time.perf_counter() - t0
+            q, sc, want_res = quantize_grads(g)
+            if not (torch.equal(mean["g"], dequantize_grads(q, sc)["g"])
+                    and torch.equal(res["g"], want_res["g"])):
+                worst.append("/".join(path))
+            n_el += g["g"].numel()
+            n_leaves += 1
+            del g, mean, res, q, sc, want_res
+        emit(dict(phase="process_group_compressed_psum", backend=backend, world_size=1,
+                  model=grad_cfg.name, layers=grad_cfg.n_layers, leaves=n_leaves,
+                  elements=n_el, seconds=cp_s, psums=mesh.collectives,
+                  mismatched_leaves=worst))
+        require(not worst, f"compressed_psum differs from dequantize(quantize(g)): {worst}")
+        require(mesh.collectives == n_leaves, "compressed_psum: not one psum a leaf")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+EP_MESHES = [((1, 1), "plain"), ((2, 1), "plain"), ((4, 1), "plain"), ((2, 2), "plain"),
+             ((2, 2), "moe_rs_combine"), ((2, 2), "moe_fp8_dispatch")]
+
+
+def expert_parallel_phase(cfg, dev, *, seq=512, repeats=3):
+    """``lm.forward(mesh=...)`` of ``cfg`` (deepseek-v2 x2, full width, bf16)
+    on a 1 x ``seq`` prefill over (data, model) meshes of logical shards of
+    ``dev`` (``EP_MESHES``, both options at 2 x 2): at every mesh the
+    grouped-FFN kernel against its plain version on the buckets that mesh
+    gives it (``LM_KERNEL_TOL``), finite logits, dropped assignments,
+    collectives, flash and grouped-FFN launches a forward, seconds and peak
+    memory; then the (1, 1) mesh against ``mesh=None``, logits and MoE
+    output bit for bit, with PyTorch's deterministic algorithms on (without
+    them ``combine``'s ``index_add_`` sums a token's top-k expert outputs in
+    bf16 in an order that changes from run to run, and ``mesh=None``
+    differs from itself: its run-to-run difference is reported).  Returns
+    the launches of the meshed forwards."""
+    import warnings
+
+    import torch
+    from repro_torch import runtime_flags
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.moe_dispatch import kernel as GK
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.kernels.moe_dispatch.ref import grouped_ffn_magnitude, grouped_ffn_ref
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import materialize
+
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    seen = {}
+    layer, ffn = MOE.moe_layer, moe_ops.grouped_ffn
+
+    def recording_layer(cfg_, p, x, **kw):
+        y, aux = layer(cfg_, p, x, **kw)
+        seen.setdefault("layer", (p, x, y))
+        return y, aux
+
+    def recording_ffn(*args):
+        seen.setdefault("ffn", args)
+        return ffn(*args)
+
+    def forward(mesh):
+        seen.clear()
+        with torch.no_grad():
+            return lm.forward(cfg, params, {"tokens": tokens}, mesh=mesh)
+
+    launches = {"flash_attention": 0, "grouped_ffn": 0}
+    tol = LM_KERNEL_TOL["grouped_ffn"]
+    MOE.moe_layer, moe_ops.grouped_ffn = recording_layer, recording_ffn
+    try:
+        for (n_data, n_model), flag in EP_MESHES:
+            for key in ("moe_rs_combine", "moe_fp8_dispatch"):
+                runtime_flags.OPT[key] = key == flag
+            mesh = ShardMesh([dev] * (n_data * n_model), n_data, n_model)
+            torch.cuda.reset_peak_memory_stats()
+            before = {**FK.LAUNCHES, **GK.LAUNCHES}
+            (logits, aux), secs = _timed(lambda: forward(mesh), dev, repeats)
+            counts = {k_: (n - before[k_]) / repeats
+                      for k_, n in {**FK.LAUNCHES, **GK.LAUNCHES}.items()}
+            for k_ in launches:
+                launches[k_] += counts[k_] * repeats
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            p_, x_, _ = seen["layer"]
+            b, wg, wu, wd, live = seen["ffn"]
+            # the kernel against the plain version on this mesh's buckets
+            got = moe_ops._forward(b, wg, wu, wd, live).float()
+            want = grouped_ffn_ref(b, wg, wu, wd, live).float()
+            limit = (tol[0] + tol[1] * grouped_ffn_magnitude(b, wg, wu, wd, live)
+                     + BF16_ULP * want.abs())
+            ffn_over = float(((got - want).abs() / limit).max())
+            ffn_ms = time_ms(lambda: moe_ops._forward(b, wg, wu, wd, live), 5, 1)
+            del got, want, limit
+            row = dict(phase="expert_parallel", model=cfg.name, layers=cfg.n_layers,
+                       dtype=str(params["embed"].dtype).replace("torch.", ""),
+                       tokens=seq, mesh=[n_data, n_model], option=flag,
+                       devices=[str(d) for d in mesh.devices],
+                       warm_s=statistics.median(secs[1:]), runs_s=secs,
+                       collectives_per_forward=mesh.collectives / repeats,
+                       flash_launches=counts["flash_attention"],
+                       grouped_ffn_launches=counts["grouped_ffn"],
+                       dropped=MOE.count_dropped(cfg, p_, x_, n_data=n_data),
+                       assignments=x_.shape[0] * x_.shape[1] * cfg.moe.top_k,
+                       ffn_shape=list(b.shape), ffn_f_local=wg.shape[-1],
+                       ffn_kernel_ms=ffn_ms, ffn_err_over_limit=ffn_over,
+                       aux=float(aux), peak_mem_gb=peak,
+                       logits_finite=bool(torch.isfinite(logits).all()))
+            emit(row)
+            require(row["logits_finite"] and tuple(logits.shape) == (1, seq, cfg.vocab),
+                    f"expert-parallel {n_data}x{n_model} {flag}: logits")
+            require(ffn_over <= 1, f"expert-parallel {n_data}x{n_model} {flag}: the grouped "
+                    f"FFN kernel at {ffn_over} x its limit")
+            require(counts["grouped_ffn"] > 0 and counts["flash_attention"] > 0,
+                    f"expert-parallel {n_data}x{n_model} {flag}: a kernel did not launch")
+            del logits, seen["ffn"], seen["layer"], b, wg, wu, wd, p_, x_
+            torch.cuda.empty_cache()
+        for key in ("moe_rs_combine", "moe_fp8_dispatch"):
+            runtime_flags.OPT[key] = False
+        # mesh=None against itself as it runs, then (1, 1) against it
+        # deterministically
+        outs = {}
+        for label, mesh, det in (("none", None, False), ("none_again", None, False),
+                                 ("none_det", None, True),
+                                 ("one_det", ShardMesh([dev], 1, 1), True)):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    logits, _ = forward(mesh)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            outs[label] = (logits, seen["layer"][2])
+        emit(dict(phase="expert_parallel_vs_no_mesh", model=cfg.name,
+                  none_run_to_run_moe_max_abs=float(
+                      (outs["none"][1].float() - outs["none_again"][1].float()).abs().max()),
+                  none_run_to_run_logits_max_abs=float(
+                      (outs["none"][0].float() - outs["none_again"][0].float()).abs().max()),
+                  deterministic_bit_equal=dict(
+                      logits=bool(torch.equal(outs["none_det"][0], outs["one_det"][0])),
+                      moe=bool(torch.equal(outs["none_det"][1], outs["one_det"][1])))))
+        require(torch.equal(outs["none_det"][0], outs["one_det"][0])
+                and torch.equal(outs["none_det"][1], outs["one_det"][1]),
+                "expert-parallel (1, 1) differs from mesh=None under deterministic algorithms")
+    finally:
+        MOE.moe_layer, moe_ops.grouped_ffn = layer, ffn
+        for key in ("moe_rs_combine", "moe_fp8_dispatch"):
+            runtime_flags.OPT[key] = False
+    del params, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2476,6 +2784,22 @@ def main() -> int:
         gnn_train_run(g, dev)
     gnn_launches = gnn_kernel_and_sharded_checks(gnn_graph, dev)
     emit(dict(phase="gnn_training_launches", by_layout=gnn_launches))
+
+    # 14. the mesh across processes as one NCCL rank (the card holds one;
+    # NCCL refuses two ranks on a GPU), then expert-parallel deepseek-v2 x2
+    # over logical shards of the card, with launch counts
+    K.reset_launches()
+    pg_launches = process_group_phase(dblp, csr_tiles, lm_cfgs["moe"], dev)
+    emit(dict(phase="process_group_launches", **pg_launches))
+    for name in ("tile_spmm_csr", "segment_softmax_csr"):
+        require(pg_launches[name] > 0,
+                f"kernel {name} was not launched on the process-group path")
+    FK.reset_launches()
+    GK.reset_launches()
+    ep_launches = expert_parallel_phase(lm_cfgs["moe"], dev)
+    emit(dict(phase="expert_parallel_launches", **ep_launches))
+    for name, n in ep_launches.items():
+        require(n > 0, f"kernel {name} was not launched on the expert-parallel path")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -122,7 +122,12 @@ def restore_checkpoint(root: str, step: int, like_tree):
               for l in json.loads((final / "manifest.json").read_text())["leaves"]}
     out: List[torch.Tensor] = []
     for key, leaf in _leaves(like_tree):
-        t = torch.from_numpy(data[key.replace("/", "__")])
+        arr = data[key.replace("/", "__")]
+        if dtypes[key] == "bfloat16" and arr.dtype.kind == "V":
+            # the reference's np.savez stores a bf16 leaf as the void dtype
+            # |V2, which torch.from_numpy refuses; the bits are the same
+            arr = arr.view(np.int16)
+        t = torch.from_numpy(arr)
         if dtypes[key] == "bfloat16":
             t = t.view(torch.bfloat16)
         dev = leaf.device if isinstance(leaf, torch.Tensor) else torch.device("cpu")

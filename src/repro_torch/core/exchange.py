@@ -1,29 +1,52 @@
-"""The shard mesh of sharded execution, driven from one process.
+"""The shard mesh of sharded execution: one process, or one rank a shard.
 
 The reference runs :class:`~repro_torch.core.pipeline.ShardedRunner`'s
-program under ``shard_map`` over a ``("shards",)`` or ``("shards",
-"model")`` device mesh and exchanges values with ``jax.lax.all_gather``.
-Here one Python process drives every shard: a :class:`ShardMesh` is the
-ordered device list (shard ``k``, model rank ``m`` on
-``devices[k * model_axis + m]``), each shard's work runs on its own device,
-and every cross-shard move goes through :meth:`ShardMesh.all_gather`, which
-counts its calls (``collectives``) where the reference counts all-gathers in
-its compiled HLO.
+program and the expert-parallel MoE under ``shard_map`` over a ``("shards",
+"model")`` (MoE: ``("data", "model")``) device mesh and moves values with
+``jax.lax`` collectives.  A :class:`ShardMesh` is that mesh in one of two
+backends, with one meaning:
 
-The device list defaults to the visible cards and is never repeated
-silently.  A mesh of logical shards on one card is an explicit list that
-names the card K times (``["cuda:0"] * 4``), as the reference's CPU runs
-name K forced host devices of one CPU.
+* **one process** (``ShardMesh(devices, n_shards, model_axis)``): the
+  ordered device list, rank ``r = k * model_axis + m`` (shard ``k``, model
+  rank ``m``) on ``devices[r]``; the process drives every rank, and a
+  collective moves tensors between them with ``.to(device)``.  The list
+  defaults to the visible cards and is never repeated silently: logical
+  shards on one card are an explicit list that names it K times
+  (``["cuda:0"] * 4``), as the reference's CPU runs name K forced host
+  devices of one CPU.
+* **a process group** (:meth:`ShardMesh.from_process_group`): one
+  ``torch.distributed`` rank a mesh rank, the same numbering, each process
+  driving only its own rank; a collective is the ``torch.distributed`` call
+  over the axis's subgroup (``all_gather_into_tensor``,
+  ``all_to_all_single``, ``all_reduce``, ``reduce_scatter_tensor``).  This is
+  the idiom of a mesh that spans hosts (one controller process per host in
+  the reference, ``launch/mesh.py``).
+
+Callers loop over :attr:`ShardMesh.local_ranks` (or
+:attr:`ShardMesh.local_shards`): every rank in one process, one under a
+group.  A collective takes one tensor per local rank (per local shard for
+:meth:`ShardMesh.all_gather`) and returns one per local rank, and adds one
+to :attr:`ShardMesh.collectives`, where the reference counts the
+collectives of its compiled HLO.  A float8 payload goes over the wire as
+its ``uint8`` bytes (gloo refuses float8).  The group backend's collectives
+are not differentiable: they raise when autograd records.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+import os
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve
 
 Device = Union[str, torch.device]
+
+#: the mesh's two axes; "data" (the reference MoE's name) is the shards axis
+AXES = ("shards", "model")
+_ALIASES = {"shards": "shards", "data": "shards", "model": "model"}
+_WIRE = {torch.float8_e4m3fn: torch.uint8, torch.float8_e5m2: torch.uint8}
 
 
 def default_devices(device: Optional[Device] = None) -> List[torch.device]:
@@ -35,13 +58,19 @@ def default_devices(device: Optional[Device] = None) -> List[torch.device]:
     return [dev]
 
 
-class ShardMesh:
-    """``n_shards`` x ``model_axis`` devices and the one collective between
-    them.
+def _axis(axis: str) -> str:
+    if axis not in _ALIASES:
+        raise ValueError(f"unknown mesh axis {axis!r}; axes are {AXES} "
+                         "('data' names the shards axis)")
+    return _ALIASES[axis]
 
-    Raises ``ValueError`` when the list holds fewer than
-    ``n_shards * model_axis`` devices: a caller who wants K logical shards
-    on fewer cards names the repeated devices itself.
+
+class ShardMesh:
+    """``n_shards`` x ``model_axis`` ranks and the collectives between them.
+
+    The one-process constructor raises ``ValueError`` when ``devices``
+    holds fewer than ``n_shards * model_axis`` devices: a caller who wants
+    K logical shards on fewer cards names the repeated devices itself.
     """
 
     def __init__(self, devices: Sequence[Device], n_shards: int,
@@ -60,25 +89,101 @@ class ShardMesh:
         self.n_shards = n_shards
         self.model_axis = model_axis
         self.devices = devices[:n_shards * model_axis]
+        self.local_ranks = list(range(n_shards * model_axis))
+        self.group = None
         self.collectives = 0
 
+    @classmethod
+    def from_process_group(cls, model_axis: int = 1, group=None,
+                           device: Optional[Device] = None) -> "ShardMesh":
+        """The mesh over an initialized ``torch.distributed`` group (the
+        default group unless named): ``world_size / model_axis`` shards,
+        group rank ``r`` holding shard ``r // model_axis`` and model rank
+        ``r % model_axis``.  Its device is ``cuda:{LOCAL_RANK}`` unless the
+        caller names another; the CPU only when asked for, and only on
+        gloo (NCCL moves CUDA tensors alone).  Every rank must call this,
+        in the same order as its other group creations: it makes the axis
+        subgroups with ``torch.distributed.new_group``."""
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        if model_axis < 1 or world % model_axis:
+            raise ValueError(f"model_axis={model_axis} does not divide the "
+                             f"group's {world} ranks")
+        dev = resolve(device if device is not None
+                      else f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+        if dist.get_backend(group) == "nccl" and dev.type != "cuda":
+            raise ValueError(f"an NCCL group moves CUDA tensors; got {dev}")
+        M, K = model_axis, world // model_axis
+        mesh = cls([dev] * world, K, M)
+        mesh.local_ranks = [rank]
+        mesh.group = group if group is not None else dist.group.WORLD
+        mesh.rank = rank
+        # every rank creates every subgroup, in one order; the axis that
+        # spans the whole group reuses it
+        granks = dist.get_process_group_ranks(mesh.group)
+        mesh._axis_groups = {}
+        for axis, members in (
+                ("shards", [[k * M + m for k in range(K)] for m in range(M)]),
+                ("model", [[k * M + m for m in range(M)] for k in range(K)])):
+            for ranks in members:
+                g = (mesh.group if len(ranks) == world else
+                     dist.new_group([granks[i] for i in ranks]))
+                if rank in ranks:
+                    mesh._axis_groups[axis] = g
+        return mesh
+
+    # --------------------------------------------------------------- layout
+    @property
+    def local_shards(self) -> List[int]:
+        """The shards this process drives, each once (its rank-0 device
+        runs a shard's replicated compute in one process)."""
+        return sorted({r // self.model_axis for r in self.local_ranks})
+
     def shard_device(self, k: int) -> torch.device:
-        """Where shard ``k``'s work runs (its model rank 0)."""
+        """Where shard ``k``'s work runs (its model rank 0's device in one
+        process; this rank's device under a group)."""
+        if self.group is not None:
+            if k not in self.local_shards:
+                raise ValueError(f"shard {k} is not driven by this rank")
+            return self.devices[self.rank]
         return self.devices[k * self.model_axis]
 
+    def rank_device(self, r: int) -> torch.device:
+        """The device of mesh rank ``r`` (a local rank)."""
+        return self.devices[r]
+
+    def axis_size(self, axis: str) -> int:
+        return self.n_shards if _axis(axis) == "shards" else self.model_axis
+
+    def axis_index(self, r: int, axis: str) -> int:
+        """Rank ``r``'s coordinate along ``axis``."""
+        return (r // self.model_axis if _axis(axis) == "shards"
+                else r % self.model_axis)
+
+    def _peers(self, r: int, axis: str) -> List[int]:
+        """The ranks along ``axis`` through ``r``, in axis order."""
+        k, m = divmod(r, self.model_axis)
+        if _axis(axis) == "shards":
+            return [j * self.model_axis + m for j in range(self.n_shards)]
+        return [k * self.model_axis + j for j in range(self.model_axis)]
+
+    # ---------------------------------------------------------- collectives
     def all_gather(self, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """All-gather over the shards axis: ``bufs[k]`` lives on shard
-        ``k``'s device; returns, on each shard's device, the (K, ...) stack.
-        Under a 2-D mesh each model rank ships only its ``ceil(W / M)``
-        slice of the last axis (padded to ``M * ceil(W / M)``) over the
-        shards axis, and the full width is reassembled on rank 0.
+        """All-gather over the shards axis: ``bufs[i]`` lives on local shard
+        ``local_shards[i]``'s device; returns, on each one's device, the
+        (K, ...) stack of every shard's buffer.  Under a 2-D mesh each model
+        rank ships only its ``ceil(W / M)`` slice of the last axis (padded
+        to ``M * ceil(W / M)``) over the shards axis, and one gather over
+        the model axis reassembles the full width.
 
         Shards that share a device share the returned tensor: callers read
         it and never write into it."""
         K, M = self.n_shards, self.model_axis
-        if len(bufs) != K:
-            raise ValueError(f"{len(bufs)} buffers for {K} shards")
+        local = self.local_shards
+        if len(bufs) != len(local):
+            raise ValueError(f"{len(bufs)} buffers for {len(local)} shards")
         self.collectives += 1
+        if self.group is not None:
+            return [self._group_gather_shards(bufs[0])]
         if M == 1:
             return self._stack(bufs, [self.shard_device(j) for j in range(K)])
         W = bufs[0].shape[-1]
@@ -93,6 +198,142 @@ class ShardMesh:
         return [torch.cat([per_rank[m][j].to(self.shard_device(j))
                            for m in range(M)], dim=-1)[..., :W]
                 for j in range(K)]
+
+    def _group_gather_shards(self, buf: torch.Tensor) -> torch.Tensor:
+        M = self.model_axis
+        if M == 1:
+            return self._dist_gather(buf, "shards").reshape(
+                self.n_shards, *buf.shape)
+        W = buf.shape[-1]
+        wp = -(-W // M)
+        m = self.rank % M
+        col = torch.nn.functional.pad(buf, (0, wp * M - W))[
+            ..., m * wp:(m + 1) * wp]
+        over_shards = self._dist_gather(col, "shards").reshape(
+            self.n_shards, *col.shape)
+        full = self._dist_gather(over_shards, "model").reshape(
+            M, *over_shards.shape)
+        return torch.cat(list(full), dim=-1)[..., :W]
+
+    def all_to_all(self, xs: Sequence[torch.Tensor], axis: str
+                   ) -> List[torch.Tensor]:
+        """``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)``: each local
+        rank's (n, ...) tensor, n the axis size; rank at axis index ``i``
+        gets the (n, ...) stack of every peer's ``[i]`` block."""
+        n = self._begin(xs, axis)
+        if any(x.shape[0] != n for x in xs):
+            raise ValueError(f"all_to_all over {axis!r} needs a leading "
+                             f"axis of {n}")
+        if self.group is not None:
+            x = xs[0].contiguous()
+            out = torch.empty_like(x)
+            self._dist(dist.all_to_all_single, out, x, axis)
+            return [out]
+        dtype = xs[0].dtype
+        wire = [x.view(_WIRE.get(dtype, dtype)) for x in xs]
+        out = []
+        for r in self.local_ranks:
+            i, dev = self.axis_index(r, axis), self.rank_device(r)
+            out.append(torch.stack([self._of(wire, p)[i].to(dev)
+                                    for p in self._peers(r, axis)])
+                       .view(dtype))
+        return out
+
+    def psum(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
+        """``jax.lax.psum`` over ``axis``: on each local rank the sum of its
+        peers' tensors (one process: in axis order)."""
+        self._begin(xs, axis)
+        return self._sum(xs, axis)
+
+    def pmean(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
+        """``jax.lax.pmean``: the psum over ``axis`` over its size."""
+        n = self._begin(xs, axis)
+        return [s / n for s in self._sum(xs, axis)]
+
+    def psum_scatter(self, xs: Sequence[torch.Tensor], axis: str, dim: int
+                     ) -> List[torch.Tensor]:
+        """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim,
+        tiled=True)``: the sum over ``axis``, cut into n blocks along
+        ``dim``; rank at axis index ``i`` keeps block ``i``."""
+        n = self._begin(xs, axis)
+        if any(x.shape[dim] % n for x in xs):
+            raise ValueError(f"dim {dim} does not split over {n} ranks")
+        if self.group is not None:
+            x = xs[0].movedim(dim, 0).contiguous()
+            out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+            self._dist(dist.reduce_scatter_tensor, out, x, axis)
+            return [out.movedim(0, dim)]
+        return [s.chunk(n, dim)[self.axis_index(r, axis)]
+                for r, s in zip(self.local_ranks, self._sum(xs, axis))]
+
+    def all_gather_axis(self, xs: Sequence[torch.Tensor], axis: str, dim: int
+                        ) -> List[torch.Tensor]:
+        """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: the peers'
+        tensors concatenated along ``dim`` in axis order."""
+        n = self._begin(xs, axis)
+        if self.group is not None:
+            x = xs[0].movedim(dim, 0).contiguous()
+            got = self._dist_gather(x, axis)
+            return [got.reshape(n * x.shape[0], *x.shape[1:]).movedim(0, dim)]
+        built: Dict[Tuple, torch.Tensor] = {}
+        out = []
+        for r in self.local_ranks:
+            peers, dev = tuple(self._peers(r, axis)), self.rank_device(r)
+            if (peers, dev) not in built:
+                built[peers, dev] = torch.cat(
+                    [self._of(xs, p).to(dev) for p in peers], dim=dim)
+            out.append(built[peers, dev])
+        return out
+
+    # -------------------------------------------------------------- helpers
+    def _begin(self, xs: Sequence[torch.Tensor], axis: str) -> int:
+        if len(xs) != len(self.local_ranks):
+            raise ValueError(f"{len(xs)} tensors for {len(self.local_ranks)} "
+                             "local ranks")
+        self.collectives += 1
+        return self.axis_size(axis)
+
+    def _of(self, xs: Sequence[torch.Tensor], r: int) -> torch.Tensor:
+        return xs[self.local_ranks.index(r)]
+
+    def _sum(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
+        if self.group is not None:
+            out = xs[0].contiguous().clone()
+            self._dist(dist.all_reduce, out, None, axis)
+            return [out]
+        built: Dict[Tuple, torch.Tensor] = {}
+        out = []
+        for r in self.local_ranks:
+            peers, dev = tuple(self._peers(r, axis)), self.rank_device(r)
+            if (peers, dev) not in built:
+                acc = self._of(xs, peers[0]).to(dev)
+                for p in peers[1:]:
+                    acc = acc + self._of(xs, p).to(dev)
+                built[peers, dev] = acc
+            out.append(built[peers, dev])
+        return out
+
+    def _dist_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The concatenation along dim 0 of ``x`` over ``axis``'s
+        subgroup."""
+        x = x.contiguous()
+        out = x.new_empty((self.axis_size(axis) * x.shape[0], *x.shape[1:]))
+        self._dist(dist.all_gather_into_tensor, out, x, axis)
+        return out
+
+    def _dist(self, call, out: torch.Tensor, x: Optional[torch.Tensor],
+              axis: str) -> None:
+        """``call(out, x, group=<axis subgroup>)`` (``call(out, group=...)``
+        when ``x`` is None: an in-place reduction) on the wire dtype's
+        views."""
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (out, x)):
+            raise NotImplementedError(
+                "the process-group mesh's collectives are not "
+                "differentiable; run under torch.no_grad()")
+        args = [t.view(_WIRE.get(t.dtype, t.dtype)) for t in (out, x)
+                if t is not None]
+        call(*args, group=self._axis_groups[_axis(axis)])
 
     @staticmethod
     def _stack(bufs: Sequence[torch.Tensor],

@@ -836,12 +836,23 @@ class ShardedRunner:
     (values read back through destination replicas — GAT's softmax
     ``recvDst`` statistics, for instance — never leave their shard).
 
-    One process drives the mesh: ``devices`` is an ordered list (shard
-    ``k``, model rank ``m`` on ``devices[k * model_axis + m]``; the visible
-    cards by default, never repeated silently) and each shard's work runs on
-    its own device.  Logical shards on one card are an explicit list that
-    names it K times.  ``device`` is where outputs are returned (the first
-    mesh device unless named).
+    ``mesh`` is the :class:`~repro_torch.core.exchange.ShardMesh` to run
+    on; without one, one process drives a mesh over ``devices``, an ordered
+    list (shard ``k``, model rank ``m`` on ``devices[k * model_axis + m]``;
+    the visible cards by default, never repeated silently), each shard's
+    work on its own device.  Logical shards on one card are an explicit list
+    that names it K times.  Under a process-group mesh
+    (:meth:`~repro_torch.core.exchange.ShardMesh.from_process_group`) each
+    rank builds this runner and calls it with the same inputs, runs only its
+    own shard, and returns what the one-process run returns: the final
+    exchange ships the outputs' full layout to every shard.  Every rank
+    derives the :class:`~repro_torch.core.tiling.ShardPlan` and the shard
+    layout from the same numpy tiles on its own, so the planning must be
+    deterministic across processes — it is (LPT and the mincut refinement
+    break ties by index, with no randomness or hash order); a plan that
+    differed between ranks would exchange mismatched rows.  ``device`` is
+    where outputs are returned (the first local shard's device unless
+    named).
 
     ``kernel_dispatch`` selects the scheduled program variant exactly as in
     :class:`PipelinedRunner`: ``True`` routes pattern-matched gather blocks
@@ -893,13 +904,23 @@ class ShardedRunner:
                  devices: Optional[Sequence] = None,
                  kernel_dispatch: bool = True,
                  reordering=None, model_axis: int = 1,
-                 device: Optional[Union[str, torch.device]] = None):
-        devices = (default_devices(device) if devices is None
-                   else [torch.device(d) for d in devices])
-        if n_devices is None:
-            n_devices = max(1, len(devices) // max(1, model_axis))
-        self.mesh = ShardMesh(devices, n_devices, model_axis)   # validates
-        self.device = resolve(device) if device is not None else devices[0]
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[ShardMesh] = None):
+        if mesh is None:
+            devices = (default_devices(device) if devices is None
+                       else [torch.device(d) for d in devices])
+            if n_devices is None:
+                n_devices = max(1, len(devices) // max(1, model_axis))
+            mesh = ShardMesh(devices, n_devices, model_axis)   # validates
+        elif ((n_devices not in (None, mesh.n_shards))
+              or model_axis not in (1, mesh.model_axis)):
+            raise ValueError(
+                f"n_devices={n_devices}, model_axis={model_axis} disagree "
+                f"with the {mesh.n_shards} x {mesh.model_axis} mesh")
+        n_devices, model_axis = mesh.n_shards, mesh.model_axis
+        self.mesh = mesh
+        self.device = (resolve(device) if device is not None
+                       else mesh.shard_device(mesh.local_shards[0]))
         self.kernel_dispatch = bool(kernel_dispatch)
         self.sp: S.ScheduledProgram = compiled.schedule(self.kernel_dispatch)
         self.graph = graph
@@ -1036,7 +1057,7 @@ class ShardedRunner:
             return kc
 
         out = []
-        for k in range(plan.n_shards):
+        for k in self.mesh.local_shards:
             dev = self.mesh.shard_device(k)
             if dev not in repl_on:
                 repl_on[dev] = {key: torch.as_tensor(v, device=dev).long()
@@ -1071,12 +1092,13 @@ class ShardedRunner:
                 self._operands = self.bind(self.tiles, self.reordering)
             operands = self._operands
         by_dev: Dict[torch.device, Tuple[Dict, Dict]] = {}
-        for dev in self.mesh.devices[::self.model_axis]:
+        shards = []
+        for k in self.mesh.local_shards:
+            dev = self.mesh.shard_device(k)
             if dev not in by_dev:
-                by_dev[dev] = ({k: to_device(v, dev) for k, v in inputs.items()},
-                               {k: to_device(v, dev) for k, v in params.items()})
-        shards = [by_dev[self.mesh.shard_device(k)]
-                  for k in range(self.n_devices)]
+                by_dev[dev] = ({n: to_device(v, dev) for n, v in inputs.items()},
+                               {n: to_device(v, dev) for n, v in params.items()})
+            shards.append(by_dev[dev])
         return [o.to(self.device) for o in self._run(shards, operands)]
 
     def run_with(self, tiles, inputs: Dict, params: Dict,
@@ -1087,10 +1109,13 @@ class ShardedRunner:
 
     def _run(self, shards: List[Tuple[Dict, Dict]],
              ops: List[Dict]) -> List[Array]:
+        """One pass over the local shards (``shards`` / ``ops`` by
+        position in ``mesh.local_shards``)."""
         sp = self.sp
         V = self.graph.n_vertices
         K, P_loc, dmax = self.n_devices, self.plan.n_local_parts, self.dmax
-        devs = [self.mesh.shard_device(k) for k in range(K)]
+        local = range(len(self.mesh.local_shards))
+        devs = [self.mesh.shard_device(k) for k in self.mesh.local_shards]
         pad_valid = [(o["pad_ids"] < V)[..., None] for o in ops]
         safe_pad_ids = [o["pad_ids"].clamp(max=V - 1) for o in ops]
         # drains queued for the next exchange: (ids, restricted, per-shard
@@ -1132,9 +1157,9 @@ class ShardedRunner:
             if not pending:
                 return
             bufs = [[torch.cat(vals[k], dim=-1) for _, _, vals in pending]
-                    for k in range(K)]
+                    for k in local]
             payload = []
-            for k in range(K):
+            for k in local:
                 parts = []
                 for (_, restricted, _), buf in zip(pending, bufs[k]):
                     if restricted:
@@ -1145,7 +1170,7 @@ class ShardedRunner:
                                      .reshape(-1))
                 payload.append(torch.cat(parts))
             gathered = self.mesh.all_gather(payload)
-            for k in range(K):
+            for k in local:
                 off = 0
                 for (ids, restricted, vals), buf in zip(pending, bufs[k]):
                     width = buf.shape[-1]
@@ -1188,7 +1213,7 @@ class ShardedRunner:
             # drains a tile-side path reads wait for the next exchange
             if phase.dst.store_ids:
                 vals = []
-                for k in range(K):
+                for k in local:
                     denv = its[k].eval_vertex(safe_pad_ids[k], phase.dst.nodes,
                                               padded=True)
                     for nid in phase.dst.store_ids:
@@ -1201,7 +1226,7 @@ class ShardedRunner:
             # everything drained since the last tile work leaves in ONE
             # exchange (the static census counts on it)
             exchange()
-            queue([tile_work(k, phase) for k in range(K)])
+            queue([tile_work(k, phase) for k in local])
         exchange()
 
         outs = [its[0].vstore[o] for o in sp.outputs]
@@ -1215,10 +1240,10 @@ def run_sharded(compiled: C.CompiledGNN, graph: Graph, tiles,
                 n_devices: Optional[int] = None, mode: str = "cost",
                 kernel_dispatch: bool = True, reordering=None,
                 devices: Optional[Sequence] = None,
-                device: Optional[Union[str, torch.device]] = None
-                ) -> List[Array]:
+                device: Optional[Union[str, torch.device]] = None,
+                mesh: Optional[ShardMesh] = None) -> List[Array]:
     """Build a :class:`ShardedRunner` and run it once."""
     return ShardedRunner(compiled, graph, tiles, n_devices, mode=mode,
                          kernel_dispatch=kernel_dispatch,
                          reordering=reordering, devices=devices,
-                         device=device)(inputs, params)
+                         device=device, mesh=mesh)(inputs, params)

@@ -11,6 +11,7 @@ compiled when a module is imported: the first launch (or an explicit
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -48,23 +49,30 @@ def build(source: Path) -> Path:
     """Compile ``source`` for sm_90a unless a build of this exact source
     exists; return the library's path.  The compiler's ``-Xptxas -v`` report
     (registers, shared memory, spills per kernel) is kept beside the library
-    as ``<name>.log``.  The library appears by an atomic rename, so racing
-    builds of one source are harmless.  Raises ``RuntimeError`` if ``nvcc``
+    as ``<name>.log``.  Processes on one host (the ranks of a process
+    group) take a file lock on ``<stem>.lock`` in the build directory, so
+    one of them compiles and the others load its library; the library also
+    appears by an atomic rename, so a build that races one on another
+    filesystem view is harmless.  Raises ``RuntimeError`` if ``nvcc``
     fails."""
     source = Path(source).resolve()
     lib_path = library_path(source)
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)   # atomic: a racing process sees all or nothing
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{source.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)        # released when the file closes
+        if not lib_path.exists():               # another process built it
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
+            lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, lib_path)   # atomic: a reader sees all or nothing
     return lib_path
 
 

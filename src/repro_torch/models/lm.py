@@ -220,13 +220,14 @@ def _dense_block(cfg, p, h, positions, cache=None, pos=None):
     return h + MOE.dense_ffn(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps))
 
 
-def _mla_block(cfg, kind, p, h, positions, cache=None, pos=None, token_chunks=4):
+def _mla_block(cfg, kind, p, h, positions, cache=None, pos=None, token_chunks=4,
+               mesh=None):
     ao, _ = A.mla_attention(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                             positions, cache=cache, cache_index=pos)
     h = h + ao
     hn = rms_norm(h, p["ln2"], cfg.norm_eps)
     if kind == "moe":
-        y, aux = MOE.moe_layer(cfg, p["moe"], hn, token_chunks=token_chunks)
+        y, aux = MOE.moe_layer(cfg, p["moe"], hn, mesh=mesh, token_chunks=token_chunks)
         return h + y, aux
     return h + MOE.dense_ffn(p["ffn"], hn), None
 
@@ -347,13 +348,18 @@ def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor) -> torch.Tensor:
     return _ln(enc, params["ln_enc"], cfg.norm_eps)
 
 
-def forward(cfg: ArchConfig, params: Dict, batch: Dict
+def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None
             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Logits (B, S_tok, vocab) for training and prefill; the moe family
     returns (logits, summed router aux loss) as the reference does.
     ``batch`` holds ``tokens`` and, for vlm, optionally ``patch_embeds``
     (B, P, d); for audio, ``frames`` (B, T, d).  Each block is
-    rematerialized when autograd records (:func:`_remat`)."""
+    rematerialized when autograd records (:func:`_remat`).
+
+    ``mesh`` (a :class:`~repro_torch.core.exchange.ShardMesh`) runs the
+    routed experts expert-parallel (:func:`~repro_torch.models.moe
+    .moe_layer`); every other weight stays whole on ``x``'s device, where
+    the reference's GSPMD placement moves it without changing a value."""
     _require_family(cfg)
     fam = cfg.family
     tokens = batch["tokens"]
@@ -376,8 +382,8 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict
             if name not in params:
                 continue
             for i in range(_n_layers(params[name])):
-                x, aux = _remat(partial(_mla_block, cfg, kind), layer(params[name], i),
-                                x, positions)
+                x, aux = _remat(partial(_mla_block, cfg, kind, mesh=mesh),
+                                layer(params[name], i), x, positions)
                 if aux is not None:
                     aux_total = aux_total + aux
         return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux_total
@@ -397,13 +403,13 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict
     return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
 
 
-def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None) -> torch.Tensor:
     """The training objective (``repro.models.lm.loss_fn``): next-token
     cross-entropy in float32 with a 1e-4 z-loss over the text logits (vlm:
     the positions after the patches; audio: the decoder tokens), plus
     1e-3 x the summed router aux loss for the moe family unless it balances
     with a router bias."""
-    out = forward(cfg, params, batch)
+    out = forward(cfg, params, batch, mesh=mesh)
     aux = 0.0
     if cfg.family == "moe":
         out, aux_total = out
@@ -414,10 +420,11 @@ def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor,
-                pos: int) -> Tuple[torch.Tensor, Dict]:
+                pos: int, *, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: (B, 1); pos: the position in the sequence
     (the hybrid family writes its attention cache at ``pos`` mod the
-    window).  The cache is updated in place and returned."""
+    window).  The cache is updated in place and returned.  ``mesh`` as in
+    :func:`forward` (the MoE in one token chunk)."""
     _require_family(cfg)
     fam = cfg.family
     pos = int(pos)
@@ -434,7 +441,8 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
                 continue
             for i in range(_n_layers(params[name])):
                 x, _ = _mla_block(cfg, kind, layer(params[name], i), x, positions,
-                                  layer(cache[name], i), pos, token_chunks=1)
+                                  layer(cache[name], i), pos, token_chunks=1,
+                                  mesh=mesh)
     elif fam == "audio":
         max_len = cache["layers"]["k"].shape[2]
         x = x + sinusoidal_positions(max_len, cfg.d_model)[pos].to(x.device, x.dtype)

@@ -92,7 +92,7 @@ COPIED = (
     "core/analysis/ir_verifier.py", "core/analysis/schedule_verifier.py",
     "core/analysis/hazards.py", "analyze.py",
     "serve/signature.py", "serve/cache.py", "serve/metrics.py",
-    "serve/server.py", "distributed/fault.py",
+    "serve/server.py", "distributed/fault.py", "runtime_flags.py",
 )
 
 
@@ -126,7 +126,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.moe_dispatch.ops, repro_torch.serve.server, "
             "repro_torch.launch.autotune, repro_torch.launch.train_gnn, "
-            "repro_torch.analyze\n"
+            "repro_torch.analyze, repro_torch.runtime_flags, "
+            "repro_torch.distributed.compression, repro_torch.core.exchange\n"
             # a 2-shard pass on the CPU loads nothing of jax or repro either
             "from repro_torch.core import compiler, pipeline, tiling\n"
             "from repro_torch.gnn import graphs, models\n"
@@ -137,6 +138,19 @@ def test_import_loads_neither_jax_nor_repro():
             "models.init_params(tr), n_devices=2, devices=['cpu'] * 2, "
             "device='cpu')\n"
             "assert out[0].shape == (60, 8)\n"
+            # and so does a one-rank gloo group mesh: a pass, compressed_psum
+            "import tempfile, torch, torch.distributed as dist\n"
+            "from repro_torch.core.exchange import ShardMesh\n"
+            "from repro_torch.distributed.compression import compressed_psum\n"
+            "dist.init_process_group('gloo', store=dist.FileStore("
+            "tempfile.mktemp(), 1), rank=0, world_size=1)\n"
+            "mesh = ShardMesh.from_process_group(device='cpu')\n"
+            "out = pipeline.run_sharded(compiler.compile_gnn(tr), g, "
+            "tiling.grid_tile(g, 4, 4, sparse=True), models.init_inputs(tr, g), "
+            "models.init_params(tr), mesh=mesh)\n"
+            "assert out[0].shape == (60, 8) and mesh.collectives == 2\n"
+            "compressed_psum([{'g': torch.ones(3)}], mesh, 'shards')\n"
+            "dist.destroy_process_group()\n"
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m == 'repro' or m.startswith('repro.')]\n"
             "print(bad)\n"

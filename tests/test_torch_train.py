@@ -235,6 +235,25 @@ def test_checkpoint_round_trip_keeps_dtypes_and_bf16_bit_patterns(tmp_path, rng)
     _bits_equal(back, tree)
 
 
+def test_checkpoint_written_by_the_reference_restores_bf16_bit_for_bit(tmp_path, rng):
+    """The reference's np.savez stores a bf16 leaf as the void dtype |V2
+    (ROADMAP C.6); the port restores it, and the f32 leaf beside it, bit for
+    bit."""
+    from repro.checkpointing import save_checkpoint as j_save
+    a = rng.standard_normal((2, 3)).astype(np.float32)
+    a[0, :2] = (np.inf, np.nan)
+    b = rng.standard_normal(3).astype(np.float32)
+    a16 = jnp.asarray(a, jnp.bfloat16)
+    j_save(str(tmp_path), 3, {"a": a16, "b": jnp.asarray(b)})
+    with np.load(tmp_path / "step_00000003" / "shard_00000.npz") as z:
+        assert z["a"].dtype.kind == "V"             # what the repair is for
+    like = {"a": torch.zeros((2, 3), dtype=torch.bfloat16), "b": torch.zeros(3)}
+    back = restore_checkpoint(str(tmp_path), 3, like)
+    # jax's bit patterns (its NaN is not torch's), viewed as bf16
+    bits = torch.from_numpy(np.asarray(a16).view(np.int16).copy())
+    _bits_equal(back, {"a": bits.view(torch.bfloat16), "b": torch.as_tensor(b)})
+
+
 def test_checkpoint_commit_is_atomic_and_keeps_the_newest(tmp_path, rng):
     tree = _state_tree(rng)
     (tmp_path / "step_00000009.tmp").mkdir()            # a save cut mid-write
