@@ -149,21 +149,46 @@ Phases, each printing one JSON line or more:
    width, bf16, a 1 x 512 prefill) over (data, model) meshes of logical
    shards of the card — (1, 1), (2, 1), (4, 1), (2, 2), and (2, 2) under
    ``moe_rs_combine`` and under ``moe_fp8_dispatch`` — the grouped FFN at
-   each mesh's shapes against its plain version (``LM_KERNEL_TOL``), (1, 1)
-   against ``mesh=None``, with dropped assignments, collectives, flash and
-   grouped-FFN launches per forward, seconds and peak memory.
+   each mesh's shapes against its plain version (``LM_KERNEL_TOL``),
+   ``mesh=None`` against itself and (1, 1) against it bit for bit (ROADMAP
+   C.8's repair: no deterministic-algorithms switch), with dropped
+   assignments, collectives, flash and grouped-FFN launches per forward,
+   seconds and peak memory;
+15. the LM sharded by its specs (tensor parallel over model, data parallel
+   over data) on logical ranks of the card (``[cuda:0] * K``), which
+   measures no scaling: 15a qwen2-1.5b (bf16, 28 layers) at (data, model)
+   (1, 4) and (2, 2), a 1 x 4,096 forward against ``mesh=None`` at phase
+   7's bf16 limit, collectives a forward against the count reckoned from
+   the layers, rank 0's parameter bytes, ``serve_requests`` on the sharded
+   KV cache at phase 7's load (8 requests, batch 4, 16 new tokens; decode
+   step p10 / p50 / p90) and decode against the mesh forward, and the fp32 2-layer cut
+   against ``mesh=None`` at ``TRAIN_PARITY_TOL``; 15b smollm-135m (9 heads
+   on a 4-wide model axis, 8 x 512) at (2, 4) with ``attn_batch_shard`` off
+   and on; 15c deepseek-v2 x2 at (2, 2) (tensor-parallel MLA and shared
+   experts, expert-parallel MoE), 1 x 512 against ``mesh=None`` routing the
+   same blocks, the absorbed decode on the sequence-sharded latent cache;
+   15d qwen2-1.5b trained 2 steps at (2, 2), plain and under
+   ``zero1_opt_state`` + ``fsdp_params`` with 2 microbatches (step s,
+   tokens/s, peak memory, moment bytes a rank) and the fp32 2-layer cut's
+   two steps against ``mesh=None``'s under both; 15e one train step of that
+   cut through ``ShardMesh.from_process_group()`` on one NCCL rank, bit for
+   bit against the one-process (1, 1) mesh.  Each kernel that 15a-d's
+   meshed calls launch is held against its plain version (``LM_KERNEL_TOL``)
+   on the inputs of the last call of each shape and option they made:
+   flash at each rank's local heads or batch block, the grouped FFN at
+   15c's buckets.
 
 Launch counters are set to 0 before phase 4 and read after phase 5, set to
 0 again before phase 7 and read after it, and likewise around each of
 phases 8, 9 and 10, around phase 12's two full-size training runs and
-around each of phase 13's gin steps and phase 14's two parts; phases 11
-and 14 add up the launches of their sharded or meshed calls alone, leaving
-out the baselines and kernel checks they run beside them.  Every kernel must have launched on its path (in phases 8 and 11 all
+around each of phase 13's gin steps and phase 14's two parts; phases 11,
+14 and 15a-d add up the launches of their sharded or meshed calls alone,
+leaving out the baselines and kernel checks they run beside them.  Every kernel must have launched on its path (in phases 8 and 11 all
 four tile kernels; in phase 7 flash on every family but ssm; in phase 12
 flash for both models, the grouped FFN for deepseek; in phase 13 the COO
 SpMM on COO tiles and the CSR SpMM on CSR tiles; in phase 14 the CSR
 SpMM and softmax on the process group, flash and the grouped FFN on the
-meshes).  Then one ``{"kernels": [...]}`` line (all six,
+meshes; in phase 15 flash in each of 15a-d, the grouped FFN in 15c).  Then one ``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
@@ -2332,14 +2357,12 @@ def process_group_phase(whole, whole_tiles, grad_cfg, dev, *, width=WIDTH,
     the census; every collective of the group backend (fp8 ``all_to_all``
     included) against the one-process mesh's answer; ``grad_cfg``'s MoE
     layer (full width, a 1 x 512 input) through the group mesh against the
-    one-process (1, 1) mesh, bit for bit under deterministic algorithms
-    (ROADMAP C.8); then ``compressed_psum`` over the rank's axis, a leaf at
+    one-process (1, 1) mesh, bit for bit (``combine`` is a fixed-order
+    sum since ROADMAP C.8's repair); then ``compressed_psum`` over the rank's axis, a leaf at
     a time, on gradients shaped like ``grad_cfg``'s parameters in their
     dtype, against ``dequantize(quantize(g))`` and its residual, bit for
     bit.  One rank says nothing about scaling.  Returns the tile kernels'
     launches of the group runs."""
-    import warnings
-
     import torch
     import torch.distributed as dist
     from repro_torch.core import compiler
@@ -2419,18 +2442,13 @@ def process_group_phase(whole, whole_tiles, grad_cfg, dev, *, width=WIDTH,
         hx = torch.randn(1, 512, grad_cfg.d_model, generator=gen,
                          device=dev).to(p["wg"].dtype)
         ffn0 = GK.LAUNCHES["grouped_ffn"]
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            with torch.no_grad(), warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                mesh.collectives = 0
-                (y_g, aux_g), moe_s = _timed(lambda: MOE.moe_layer(grad_cfg, p, hx, mesh=mesh),
-                                             dev, 1)
-                moe_collectives = mesh.collectives
-                moe_launches = GK.LAUNCHES["grouped_ffn"] - ffn0
-                y_1, aux_1 = MOE.moe_layer(grad_cfg, p, hx, mesh=one)
-        finally:
-            torch.use_deterministic_algorithms(False)
+        with torch.no_grad():
+            mesh.collectives = 0
+            (y_g, aux_g), moe_s = _timed(lambda: MOE.moe_layer(grad_cfg, p, hx, mesh=mesh),
+                                         dev, 1)
+            moe_collectives = mesh.collectives
+            moe_launches = GK.LAUNCHES["grouped_ffn"] - ffn0
+            y_1, aux_1 = MOE.moe_layer(grad_cfg, p, hx, mesh=one)
         moe_equal = bool(torch.equal(y_g, y_1) and torch.equal(aux_g, aux_1))
         emit(dict(phase="process_group_collectives", backend=backend, world_size=1,
                   unequal=unequal, moe=grad_cfg.name, moe_tokens=512,
@@ -2481,15 +2499,11 @@ def expert_parallel_phase(cfg, dev, *, seq=512, repeats=3):
     ``dev`` (``EP_MESHES``, both options at 2 x 2): at every mesh the
     grouped-FFN kernel against its plain version on the buckets that mesh
     gives it (``LM_KERNEL_TOL``), finite logits, dropped assignments,
-    collectives, flash and grouped-FFN launches a forward, seconds and peak
-    memory; then the (1, 1) mesh against ``mesh=None``, logits and MoE
-    output bit for bit, with PyTorch's deterministic algorithms on (without
-    them ``combine``'s ``index_add_`` sums a token's top-k expert outputs in
-    bf16 in an order that changes from run to run, and ``mesh=None``
-    differs from itself: its run-to-run difference is reported).  Returns
-    the launches of the meshed forwards."""
-    import warnings
-
+    collectives, flash and grouped-FFN launches a forward, seconds (the
+    parameters sharded once a mesh, before the timing) and peak memory;
+    then ``mesh=None`` against itself and the (1, 1) mesh against
+    it, logits and MoE output bit for bit, without deterministic algorithms
+    (ROADMAP C.8).  Returns the launches of the meshed forwards."""
     import torch
     from repro_torch import runtime_flags
     from repro_torch.core.exchange import ShardMesh
@@ -2499,7 +2513,7 @@ def expert_parallel_phase(cfg, dev, *, seq=512, repeats=3):
     from repro_torch.kernels.moe_dispatch.ref import grouped_ffn_magnitude, grouped_ffn_ref
     from repro_torch.models import lm
     from repro_torch.models import moe as MOE
-    from repro_torch.models.common import materialize
+    from repro_torch.models.common import join_blocks, materialize, shard_params
 
     params = materialize(torch.Generator(device=dev).manual_seed(0),
                          lm.model_template(cfg), device=dev)
@@ -2510,17 +2524,24 @@ def expert_parallel_phase(cfg, dev, *, seq=512, repeats=3):
 
     def recording_layer(cfg_, p, x, **kw):
         y, aux = layer(cfg_, p, x, **kw)
-        seen.setdefault("layer", (p, x, y))
+        if "layer" not in seen:
+            if isinstance(x, list):     # the LM's blocks: one a local rank
+                mesh = kw["mesh"]
+                x_, y_ = (join_blocks(t, mesh, t[0].device) for t in (x, y))
+                p_ = {k: p.blocks[0][k] for k in ("router", "router_bias") if k in p}
+                seen["layer"] = (p_, x_, y_)
+            else:
+                seen["layer"] = (p, x, y)
         return y, aux
 
     def recording_ffn(*args):
         seen.setdefault("ffn", args)
         return ffn(*args)
 
-    def forward(mesh):
+    def forward(mesh, p=params):
         seen.clear()
         with torch.no_grad():
-            return lm.forward(cfg, params, {"tokens": tokens}, mesh=mesh)
+            return lm.forward(cfg, p, {"tokens": tokens}, mesh=mesh)
 
     launches = {"flash_attention": 0, "grouped_ffn": 0}
     tol = LM_KERNEL_TOL["grouped_ffn"]
@@ -2531,8 +2552,10 @@ def expert_parallel_phase(cfg, dev, *, seq=512, repeats=3):
                 runtime_flags.OPT[key] = key == flag
             mesh = ShardMesh([dev] * (n_data * n_model), n_data, n_model)
             torch.cuda.reset_peak_memory_stats()
+            sp = shard_params(params, lm.model_template(cfg), mesh)
+            mesh.collectives = 0
             before = {**FK.LAUNCHES, **GK.LAUNCHES}
-            (logits, aux), secs = _timed(lambda: forward(mesh), dev, repeats)
+            (logits, aux), secs = _timed(lambda: forward(mesh, sp), dev, repeats)
             counts = {k_: (n - before[k_]) / repeats
                       for k_, n in {**FK.LAUNCHES, **GK.LAUNCHES}.items()}
             for k_ in launches:
@@ -2569,35 +2592,25 @@ def expert_parallel_phase(cfg, dev, *, seq=512, repeats=3):
                     f"FFN kernel at {ffn_over} x its limit")
             require(counts["grouped_ffn"] > 0 and counts["flash_attention"] > 0,
                     f"expert-parallel {n_data}x{n_model} {flag}: a kernel did not launch")
-            del logits, seen["ffn"], seen["layer"], b, wg, wu, wd, p_, x_
+            del logits, seen["ffn"], seen["layer"], b, wg, wu, wd, p_, x_, sp
             torch.cuda.empty_cache()
         for key in ("moe_rs_combine", "moe_fp8_dispatch"):
             runtime_flags.OPT[key] = False
-        # mesh=None against itself as it runs, then (1, 1) against it
-        # deterministically
+        # mesh=None against itself, then (1, 1) against it, bit for bit
+        # (ROADMAP C.8: ``combine`` is a fixed-order sum)
         outs = {}
-        for label, mesh, det in (("none", None, False), ("none_again", None, False),
-                                 ("none_det", None, True),
-                                 ("one_det", ShardMesh([dev], 1, 1), True)):
-            torch.use_deterministic_algorithms(det, warn_only=True)
-            try:
-                with warnings.catch_warnings():
-                    warnings.simplefilter("ignore")
-                    logits, _ = forward(mesh)
-            finally:
-                torch.use_deterministic_algorithms(False)
+        for label, mesh in (("none", None), ("none_again", None),
+                            ("one", ShardMesh([dev], 1, 1))):
+            logits, _ = forward(mesh)
             outs[label] = (logits, seen["layer"][2])
+        same = {k: dict(logits=bool(torch.equal(outs["none"][0], outs[k][0])),
+                        moe=bool(torch.equal(outs["none"][1], outs[k][1])))
+                for k in ("none_again", "one")}
         emit(dict(phase="expert_parallel_vs_no_mesh", model=cfg.name,
-                  none_run_to_run_moe_max_abs=float(
-                      (outs["none"][1].float() - outs["none_again"][1].float()).abs().max()),
-                  none_run_to_run_logits_max_abs=float(
-                      (outs["none"][0].float() - outs["none_again"][0].float()).abs().max()),
-                  deterministic_bit_equal=dict(
-                      logits=bool(torch.equal(outs["none_det"][0], outs["one_det"][0])),
-                      moe=bool(torch.equal(outs["none_det"][1], outs["one_det"][1])))))
-        require(torch.equal(outs["none_det"][0], outs["one_det"][0])
-                and torch.equal(outs["none_det"][1], outs["one_det"][1]),
-                "expert-parallel (1, 1) differs from mesh=None under deterministic algorithms")
+                  none_run_to_run_bit_equal=same["none_again"],
+                  one_by_one_bit_equal=same["one"]))
+        require(all(all(v.values()) for v in same.values()),
+                f"expert-parallel: mesh=None run to run or (1, 1) against it: {same}")
     finally:
         MOE.moe_layer, moe_ops.grouped_ffn = layer, ffn
         for key in ("moe_rs_combine", "moe_fp8_dispatch"):
@@ -2605,6 +2618,583 @@ def expert_parallel_phase(cfg, dev, *, seq=512, repeats=3):
     del params, outs
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the LM sharded by its specs, over logical ranks of the card
+# ---------------------------------------------------------------------------
+
+TP_MESHES = ((1, 4), (2, 2))
+TP_SERVE = dict(requests=8, batch=4, max_prompt=24, max_new=16)     # phase 7's load
+TP_CHECK_LEN = 8                # decode vs forward, as phase 7
+TP_TRAIN_SHAPE = (4, 1024)      # phase 12's qwen2-1.5b batch
+TP_SMOLLM_SHAPE = (8, 512)
+
+
+def _bf16_limit(cfg, params, batch, ref):
+    """Phase 7's bf16 rule for two bf16 runs of one model: 3 x e_model (the
+    bf16 forward's distance from the fp32 forward on the same weights) + the
+    family's fp32 limit; returns (limit, e_model)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    with torch.no_grad():
+        out = lm.forward(cfg, tree_map(lambda t: t.float(), params), batch)
+    e_model = scaled_err(ref.float(), out[0] if cfg.family == "moe" else out)
+    del out
+    torch.cuda.empty_cache()
+    return BF16_MODEL_MULTIPLE * e_model + LM_MODEL_TOL[cfg.family], e_model
+
+
+def _rank_bytes(sp):
+    """Local rank 0's parameter bytes against the whole tree's, all leaves
+    and the leaves split over model (tensor parallel)."""
+    import math
+    from repro_torch.models.common import model_sharded, torch_dtype, tree_items
+    mine = whole = tp_mine = tp_whole = 0
+    for (_, l), (_, spec), (_, t) in zip(tree_items(sp.template), tree_items(sp.specs),
+                                         tree_items(sp.blocks[0])):
+        w = math.prod(l.shape) * t.element_size()
+        b = t.numel() * t.element_size()
+        mine, whole = mine + b, whole + w
+        if any(model_sharded(e) for e in spec):
+            tp_mine, tp_whole = tp_mine + b, tp_whole + w
+    return dict(rank0_gb=mine / 1e9, whole_gb=whole / 1e9,
+                tp_leaves_share=tp_mine / max(1, tp_whole))
+
+
+def dense_collectives(cfg, mesh) -> int:
+    """The collectives of a dense forward reckoned from its layers: per layer
+    one all-gather over model for each of q / k / v whose heads do not divide
+    the axis but whose columns do (they split mid-head), the psums after
+    ``wo`` and ``wd``; then the vocabulary-parallel lookup's psum and the
+    logits' all-gather."""
+    M = mesh.model_axis
+    per_layer = 2 + sum(1 for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)
+                        if n % M and (n * cfg.hdim) % M == 0)
+    return cfg.n_layers * per_layer + 2
+
+
+def _mesh_decode_err(cfg, sp, mesh, dev, full, tokens):
+    """Teacher-forced decode through ``make_decode_step(cfg, mesh)`` on a
+    sharded cache against ``full``, the mesh forward's logits of the same
+    tokens; the worst step's scaled error."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1], mesh=mesh)
+    step = make_decode_step(cfg, mesh)
+    err = 0.0
+    for pos in range(tokens.shape[1]):
+        logits, cache = step(sp, cache, tokens[:, pos:pos + 1], pos)
+        require(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite mesh decode")
+        err = max(err, scaled_err(logits.float(), full[:, pos].float()))
+    return err
+
+
+class MeshCalls:
+    """Phase 15's meshed calls.  :meth:`run` calls ``fn`` and adds the
+    kernel launches it makes to ``launches[label]`` (a delta around the
+    call, so neither the ``mesh=None`` baselines beside it nor the kernel
+    checks are counted), keeping the inputs of the last flash and
+    grouped-FFN call of each shape and option it makes (a decode's last
+    step reads the fullest cache; a cache is written only past the
+    ``kv_len`` of the steps before, so the inputs are kept without a
+    copy); :meth:`check` then holds each kernel against its plain version
+    on them."""
+
+    def __init__(self):
+        self.launches = {}
+        self.inputs = {}
+
+    def run(self, label, fn):
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.kernels.moe_dispatch import kernel as GK
+        from repro_torch.kernels.moe_dispatch import ops as moe_ops
+        from repro_torch.models import attention
+        flash, ffn = attention.flash_attention, moe_ops.grouped_ffn
+
+        def recording_flash(q, k, v, **opts):
+            key = (label, "flash_attention", tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                   str(q.dtype), opts.get("causal", True), opts.get("window"),
+                   opts.get("kv_len") is None)
+            self.inputs[key] = ([t.detach() for t in (q, k, v)], opts)
+            return flash(q, k, v, **opts)
+
+        def recording_ffn(*args):
+            key = (label, "grouped_ffn", *(tuple(t.shape) for t in args), str(args[0].dtype))
+            self.inputs[key] = ([t.detach() for t in args], {})
+            return ffn(*args)
+
+        before = {**FK.LAUNCHES, **GK.LAUNCHES}
+        attention.flash_attention, moe_ops.grouped_ffn = recording_flash, recording_ffn
+        try:
+            return fn()
+        finally:
+            attention.flash_attention, moe_ops.grouped_ffn = flash, ffn
+            mine = self.launches.setdefault(label, dict.fromkeys(before, 0))
+            for k_, n in {**FK.LAUNCHES, **GK.LAUNCHES}.items():
+                mine[k_] += n - before[k_]
+
+    def by_cell(self):
+        """The launches summed over each cell (a label's first word)."""
+        out = {}
+        for label, counts in self.launches.items():
+            cell = out.setdefault(label.split()[0], dict.fromkeys(counts, 0))
+            for k_, n in counts.items():
+                cell[k_] += n
+        return out
+
+    def check(self):
+        """Each kept call's kernel against its plain version on the same
+        inputs, at ``LM_KERNEL_TOL`` (+ one bf16 ulp of the plain output in
+        bf16), as phase 6 holds them: one line a call, failing on any over
+        its limit or not finite."""
+        import torch
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+        from repro_torch.kernels.moe_dispatch import ops as moe_ops
+        from repro_torch.kernels.moe_dispatch.ref import grouped_ffn_magnitude, grouped_ffn_ref
+        failed = []
+        for key, (args, opts) in self.inputs.items():
+            label, name = key[:2]
+            if name == "flash_attention":
+                q, k, v = (t.contiguous() for t in args)
+                o = {n: opts[n] for n in ("causal", "window", "kv_len") if n in opts}
+                if o.get("kv_len") is not None:
+                    o["kv_len"] = o["kv_len"].to(torch.int32)
+                got = FK.flash_attention_cuda(q, k, v, **o).float()
+                want = flash_attention_ref(q, k, v, **o).float()
+                mag = flash_attention_ref(q, k, v.abs(), **o).float()
+                shapes = dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
+                              causal=o.get("causal", True), window=o.get("window"),
+                              kv_len=None if o.get("kv_len") is None
+                              else o["kv_len"].tolist())
+            else:
+                got = moe_ops._forward(*args).float()
+                want = grouped_ffn_ref(*args).float()
+                mag = grouped_ffn_magnitude(*args).float()
+                shapes = dict(buckets=list(args[0].shape), wg=list(args[1].shape),
+                              live=args[4].tolist())
+            tol = LM_KERNEL_TOL[name]
+            limit = tol[0] + tol[1] * mag
+            if args[0].dtype == torch.bfloat16:
+                limit = limit + BF16_ULP * want.abs()
+            err = (got - want).abs()
+            row = dict(phase="tp_kernel_check", kernel=name, call=label,
+                       dtype=str(args[0].dtype).replace("torch.", ""), shapes=shapes,
+                       max_abs_err=float(err.max()), err_over_limit=float((err / limit).max()),
+                       finite=bool(torch.isfinite(got).all()))
+            emit(row)
+            if not (row["finite"] and row["err_over_limit"] <= 1):
+                failed.append(f"{name} {label} {shapes}: {row['err_over_limit']} x its limit")
+            del got, want, mag, err, limit
+        self.inputs.clear()
+        torch.cuda.empty_cache()
+        require(not failed, "tp kernel checks: " + "; ".join(failed))
+
+
+def _spread(step_s):
+    """Decode step seconds: p10, p50 and p90."""
+    d = statistics.quantiles(step_s, n=10)
+    return dict(decode_step_p10_s=d[0], decode_step_p50_s=statistics.median(step_s),
+                decode_step_p90_s=d[8], decode_steps=len(step_s))
+
+
+def tp_dense_phase(cfg, dev, calls, *, prefill_len=PREFILL_LEN, repeats=3):
+    """15a: ``cfg`` (qwen2-1.5b, bf16, every layer) over ``TP_MESHES``: a 1 x
+    ``prefill_len`` forward against ``mesh=None`` at phase 7's bf16 limit,
+    collectives a forward against :func:`dense_collectives`, rank 0's
+    parameter bytes, ``serve_requests`` on the sharded KV cache at phase
+    7's load (decode step p10 / p50 / p90), teacher-forced decode against
+    the mesh forward, warm forward s, peak memory; then the fp32 2-layer
+    cut at phase 12's batch against ``mesh=None`` at ``TRAIN_PARITY_TOL``.
+    The meshed calls go through ``calls`` (:class:`MeshCalls`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, shard_params
+
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab, (1, prefill_len)),
+                             device=dev)
+    with torch.no_grad():
+        ref = lm.forward(cfg, params, {"tokens": tokens})
+    limit, e_model = _bf16_limit(cfg, params, {"tokens": tokens}, ref)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(4, TP_SERVE["max_prompt"] + 1))
+               for _ in range(TP_SERVE["requests"])]
+    for shape in TP_MESHES:
+        tag = f"15a {shape[0]}x{shape[1]}"
+        mesh = ShardMesh([dev] * (shape[0] * shape[1]), *shape)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sp = shard_params(params, lm.model_template(cfg), mesh)
+        mesh.collectives = 0
+        with torch.no_grad():
+            logits, secs = calls.run(tag, lambda: _timed(
+                lambda: lm.forward(cfg, sp, {"tokens": tokens}, mesh=mesh), dev, repeats))
+        per_forward = mesh.collectives / repeats
+        err = scaled_err(logits.float(), ref.float())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            full = calls.run(tag, lambda: lm.forward(
+                cfg, sp, {"tokens": tokens[:, :TP_CHECK_LEN]}, mesh=mesh))
+        dec = calls.run(tag, lambda: _mesh_decode_err(cfg, sp, mesh, dev, full,
+                                                      tokens[:, :TP_CHECK_LEN]))
+        res = calls.run(tag, lambda: serve_requests(
+            cfg, sp, prompts, batch=TP_SERVE["batch"], max_prompt=TP_SERVE["max_prompt"],
+            max_new=TP_SERVE["max_new"], device=dev, mesh=mesh))
+        toks = np.concatenate([o.ravel() for o in res["tokens"]])
+        row = dict(phase="tp_dense", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
+                   mesh=list(shape), tokens=prefill_len, **_rank_bytes(sp),
+                   collectives_per_forward=per_forward,
+                   collectives_reckoned=dense_collectives(cfg, mesh),
+                   vs_no_mesh_err=err, limit=limit, bf16_vs_fp32_forward_err=e_model,
+                   decode_vs_forward_err=dec, warm_forward_s=statistics.median(secs[1:]),
+                   forward_runs_s=secs, serve=TP_SERVE, serve_tokens_per_s=res["tokens_per_s"],
+                   **_spread(res["step_s"]), peak_mem_gb=peak,
+                   note="logical ranks of one card: measures no scaling")
+        emit(row)
+        require(per_forward == row["collectives_reckoned"],
+                f"tp {cfg.name} {shape}: {per_forward} collectives a forward, reckoned "
+                f"{row['collectives_reckoned']}")
+        require(err <= limit and dec <= limit,
+                f"tp {cfg.name} {shape}: vs mesh=None {err}, decode {dec}, limit {limit}")
+        require(toks.size == TP_SERVE["requests"] * TP_SERVE["max_new"]
+                and toks.min() >= 0 and toks.max() < cfg.vocab,
+                f"tp {cfg.name} {shape}: bad served tokens")
+        del sp, logits, full
+    del params, ref
+    torch.cuda.empty_cache()
+    # the fp32 cut at phase 12's width and batch
+    cut = dataclasses.replace(cfg, n_layers=2)
+    p32 = materialize(torch.Generator(device=dev).manual_seed(0), lm.model_template(cut),
+                      dtype_override="float32", device=dev)
+    b = {"tokens": torch.as_tensor(np.random.default_rng(5).integers(
+        0, cut.vocab, TP_TRAIN_SHAPE), device=dev)}
+    with torch.no_grad():
+        want = lm.forward(cut, p32, b)
+        errs = {f"{s[0]}x{s[1]}": scaled_err(calls.run(f"15a {s[0]}x{s[1]} fp32", lambda: (
+            lm.forward(cut, p32, b, mesh=ShardMesh([dev] * (s[0] * s[1]), *s)))), want)
+            for s in TP_MESHES}
+    emit(dict(phase="tp_dense_fp32_cut", model=cut.name, layers=2, batch=list(TP_TRAIN_SHAPE),
+              err=errs, tol=TRAIN_PARITY_TOL))
+    require(all(e <= TRAIN_PARITY_TOL for e in errs.values()),
+            f"tp fp32 cut vs mesh=None: {errs}")
+    del p32, want
+    torch.cuda.empty_cache()
+
+
+def tp_heads_phase(cfg, dev, calls, *, shape=(2, 4), batch=TP_SMOLLM_SHAPE, repeats=3):
+    """15b: ``cfg`` (smollm-135m, bf16, every layer: 9 heads on a 4-wide
+    model axis) at ``shape``, ``OPT["attn_batch_shard"]`` off (heads
+    gathered, attention replicated over model) and on (the batch over every
+    axis), both against ``mesh=None`` at phase 7's bf16 limit."""
+    import numpy as np
+    import torch
+    from repro_torch import runtime_flags
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import materialize, shard_params
+
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), device=dev)
+    b = {"tokens": torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab, batch),
+                                   device=dev)}
+    with torch.no_grad():
+        ref = lm.forward(cfg, params, b)
+    limit, e_model = _bf16_limit(cfg, params, b, ref)
+    mesh = ShardMesh([dev] * (shape[0] * shape[1]), *shape)
+    sp = shard_params(params, lm.model_template(cfg), mesh)
+    seen = []
+    to_batch = attention._columns_to_batch
+    attention._columns_to_batch = lambda *a: (seen.append(1), to_batch(*a))[1]
+    try:
+        for flag in (False, True):
+            runtime_flags.OPT["attn_batch_shard"] = flag
+            seen.clear()
+            mesh.collectives = 0
+            with torch.no_grad():
+                out, secs = calls.run(f"15b attn_batch_shard={flag}", lambda: _timed(
+                    lambda: lm.forward(cfg, sp, b, mesh=mesh), dev, repeats))
+            err = scaled_err(out.float(), ref.float())
+            row = dict(phase="tp_heads", model=cfg.name, layers=cfg.n_layers,
+                       heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, mesh=list(shape),
+                       batch=list(batch), attn_batch_shard=flag,
+                       batch_split_calls=len(seen) // repeats,
+                       collectives_per_forward=mesh.collectives / repeats,
+                       vs_no_mesh_err=err, limit=limit, bf16_vs_fp32_forward_err=e_model,
+                       warm_forward_s=statistics.median(secs[1:]), forward_runs_s=secs)
+            emit(row)
+            require(err <= limit, f"tp {cfg.name} attn_batch_shard={flag}: {err} over {limit}")
+            require((len(seen) > 0) == flag,
+                    f"tp {cfg.name}: the batch-split attention ran {len(seen)} times "
+                    f"with attn_batch_shard={flag}")
+    finally:
+        runtime_flags.OPT["attn_batch_shard"] = False
+        attention._columns_to_batch = to_batch
+    del params, sp, ref, out
+    torch.cuda.empty_cache()
+
+
+def tp_moe_phase(cfg, dev, calls, *, shape=(2, 2), seq=512, repeats=3):
+    """15c: ``cfg`` (deepseek-v2 x2, bf16) at ``shape``: tensor-parallel MLA,
+    the expert-parallel MoE, the tensor-parallel shared experts and dense
+    layer.  A 1 x ``seq`` forward against ``mesh=None`` routing the same
+    token blocks (a mesh of n_data shards routes 4 x n_data blocks of
+    seq / (4 n_data) tokens, so the reference run takes 4 x n_data chunks)
+    at phase 7's bf16 limit, without deterministic algorithms (ROADMAP
+    C.8: ``mesh=None`` twice bit for bit); the absorbed decode on the
+    sequence-sharded latent cache against the mesh forward; peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import materialize, shard_params
+
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), device=dev)
+    b = {"tokens": torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab, (1, seq)),
+                                   device=dev)}
+    layer = MOE.moe_layer
+
+    def blocks_of(n_data):
+        def moe_layer(cfg_, p, x, mesh=None, token_chunks=4):
+            return layer(cfg_, p, x, mesh=mesh, token_chunks=token_chunks * n_data)
+        return moe_layer
+
+    MOE.moe_layer = blocks_of(shape[0])
+    try:
+        with torch.no_grad():
+            ref = lm.forward(cfg, params, b)[0]
+            again = lm.forward(cfg, params, b)[0]
+        limit, e_model = _bf16_limit(cfg, params, b, ref)
+    finally:
+        MOE.moe_layer = layer
+    mesh = ShardMesh([dev] * (shape[0] * shape[1]), *shape)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sp = shard_params(params, lm.model_template(cfg), mesh)
+    mesh.collectives = 0
+    with torch.no_grad():
+        (logits, aux), secs = calls.run("15c", lambda: _timed(
+            lambda: lm.forward(cfg, sp, b, mesh=mesh), dev, repeats))
+        per_forward = mesh.collectives / repeats
+        full = calls.run("15c", lambda: lm.forward(
+            cfg, sp, {"tokens": b["tokens"][:, :TP_CHECK_LEN]}, mesh=mesh)[0])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    dec = calls.run("15c decode", lambda: _mesh_decode_err(cfg, sp, mesh, dev, full,
+                                                            b["tokens"][:, :TP_CHECK_LEN]))
+    err = scaled_err(logits.float(), ref.float())
+    row = dict(phase="tp_moe", model=cfg.name, layers=cfg.n_layers, mesh=list(shape),
+               tokens=seq, **_rank_bytes(sp), no_mesh_run_to_run_bit_equal=bool(
+                   torch.equal(ref, again)),
+               vs_no_mesh_err=err, limit=limit, bf16_vs_fp32_forward_err=e_model,
+               decode_vs_forward_err=dec, collectives_per_forward=per_forward,
+               warm_forward_s=statistics.median(secs[1:]), forward_runs_s=secs,
+               aux=float(aux), peak_mem_gb=peak, phase14b_peak_gb=18.7)
+    emit(row)
+    require(row["no_mesh_run_to_run_bit_equal"], "mesh=None differs from itself (C.8)")
+    require(err <= limit and dec <= limit,
+            f"tp-ep {cfg.name}: vs mesh=None {err}, decode {dec}, limit {limit}")
+    del params, sp, ref, again, logits, full
+    torch.cuda.empty_cache()
+
+
+def _two_step_parity(cfg, dev, shape, flags, calls, label, *, batch, seq, microbatches):
+    """Two fp32 steps of ``cfg`` on ``shape`` under ``flags`` against two
+    mesh-less steps, judged as ``training_parity`` judges them; the meshed
+    run goes through ``calls`` as ``label``."""
+    import torch
+    from repro_torch import runtime_flags
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, tree_items, unshard_params
+    from repro_torch.optim.adamw import adamw_init
+
+    pipe = TokenPipeline(cfg, seq_len=seq, global_batch=batch)
+    data = [batch_tensors(pipe.global_batch_at(i), dev) for i in range(2)]
+
+    def run(mesh, mb):
+        p = materialize(torch.Generator(device=dev).manual_seed(0), lm.model_template(cfg),
+                        dtype_override="float32", device=dev)
+        opt = adamw_init(p)
+        step = make_train_step(cfg, mesh, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                               microbatches=mb)
+        ms = []
+        for d in data:
+            p, opt, m = step(p, opt, d)
+            ms.append({k: float(v) for k, v in m.items()})
+        if mesh is not None:
+            p, opt = unshard_params(p), opt._replace(m=unshard_params(opt.m),
+                                                     v=unshard_params(opt.v))
+        return p, opt, ms
+
+    pp, op, mp = run(None, 1)
+    for k in flags:
+        runtime_flags.OPT[k] = True
+    try:
+        pk, ok, mk = calls.run(label, lambda: run(
+            ShardMesh([dev] * (shape[0] * shape[1]), *shape), microbatches))
+    finally:
+        for k in flags:
+            runtime_flags.OPT[k] = False
+    rel = {f"{k}_{i}": abs(a[k] - b[k]) / max(1e-30, abs(b[k]))
+           for i, (a, b) in enumerate(zip(mk, mp)) for k in ("loss", "grad_norm")}
+    moment = max(float((a - b).abs().max()) / max(1e-30, float(b.abs().max()))
+                 for tk, tp in ((ok.m, op.m), (ok.v, op.v))
+                 for (_, a), (_, b) in zip(tree_items(tk), tree_items(tp)))
+    ratio = max(float(((a - b).abs() / _adamw_param_limit(
+        b, m, v, mk[1]["lr"], 2, TRAIN_PARITY_TOL)).max())
+        for (_, a), (_, b), (_, m), (_, v) in zip(tree_items(pk), tree_items(pp),
+                                                  tree_items(op.m), tree_items(op.v)))
+    return rel, moment, ratio
+
+
+def tp_train_phase(cfg, dev, calls, *, shape=(2, 2), steps=2, batch=TP_TRAIN_SHAPE):
+    """15d: ``cfg`` (qwen2-1.5b, bf16, every layer) trained ``steps`` steps at
+    ``shape`` plain and under ``zero1_opt_state`` + ``fsdp_params`` with 2
+    microbatches: losses finite, step s, tokens/s, peak memory, rank 0's
+    moment bytes; then the fp32 2-layer cut's two steps against mesh=None's
+    (``TRAIN_PARITY_TOL``) under both settings."""
+    import dataclasses
+
+    import torch
+    from repro_torch import runtime_flags
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step, maybe_fsdp
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, shard_params, tree_items
+    from repro_torch.optim.adamw import adamw_init
+
+    pipe = TokenPipeline(cfg, seq_len=batch[1], global_batch=batch[0])
+    settings = (("plain", (), 1), ("zero1+fsdp", ("zero1_opt_state", "fsdp_params"), 2))
+    for label, flags, mb in settings:
+        for k in flags:
+            runtime_flags.OPT[k] = True
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mesh = ShardMesh([dev] * (shape[0] * shape[1]), *shape)
+            p = materialize(torch.Generator(device=dev).manual_seed(0),
+                            lm.model_template(cfg), device=dev)
+            sp = shard_params(p, maybe_fsdp(lm.model_template(cfg)), mesh)
+            del p
+            opt = adamw_init(sp)
+            step = make_train_step(cfg, mesh, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                                   microbatches=mb)
+            losses, step_s = [], []
+            for s in range(steps):
+                d = batch_tensors(pipe.global_batch_at(s), dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sp, opt, m = calls.run(f"15d {label}", lambda: step(sp, opt, d))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+            mom = sum(t.numel() * t.element_size() for tree in (opt.m, opt.v)
+                      for _, t in tree_items(tree.blocks[0]))
+            row = dict(phase="tp_training", model=cfg.name, layers=cfg.n_layers,
+                       mesh=list(shape), setting=label, microbatches=mb,
+                       batch=list(batch), losses=losses, step_s=step_s,
+                       tokens_per_s=batch[0] * batch[1] / step_s[-1],
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       rank0_moment_gb=mom / 1e9, **_rank_bytes(sp),
+                       note="logical ranks of one card: measures no scaling")
+            emit(row)
+            require(all(v == v and abs(v) != float("inf") for v in losses),
+                    f"tp training {label}: losses {losses}")
+            del sp, opt, step
+        finally:
+            for k in flags:
+                runtime_flags.OPT[k] = False
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=2)
+    for label, flags, mb in settings:
+        rel, moment, ratio = _two_step_parity(cut, dev, shape, flags, calls,
+                                              f"15d {label} fp32", batch=batch[0],
+                                              seq=batch[1], microbatches=mb)
+        emit(dict(phase="tp_training_parity", model=cut.name, layers=2, mesh=list(shape),
+                  setting=label, microbatches=mb, rel_err=rel, moment_err=moment,
+                  param_err_over_limit=ratio, tol=TRAIN_PARITY_TOL))
+        require(all(v <= TRAIN_PARITY_TOL for v in rel.values()) and moment <= TRAIN_PARITY_TOL
+                and ratio <= 1.0, f"tp training parity {label}: {rel} {moment} {ratio}")
+    torch.cuda.empty_cache()
+
+
+def tp_group_phase(cfg, dev, *, batch=(2, 256)):
+    """15e: one train step of ``cfg`` (the fp32 2-layer cut) through
+    ``ShardMesh.from_process_group()`` on one NCCL rank (gloo on the CPU),
+    autograd through the group's collectives, against the one-process (1,
+    1) mesh: params, moments, loss and grad norm bit for bit (deterministic
+    algorithms on: the embedding's backward scatters).  One rank says
+    nothing about scaling."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, tree_items
+
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    b = {"tokens": torch.as_tensor(np.random.default_rng(8).integers(0, cfg.vocab, batch),
+                                   device=dev)}
+
+    def one_step(mesh):
+        from repro_torch.optim.adamw import adamw_init
+        p = materialize(torch.Generator(device=dev).manual_seed(0), lm.model_template(cfg),
+                        dtype_override="float32", device=dev)
+        step = make_train_step(cfg, mesh, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+        mesh.collectives = 0
+        sp, opt, m = step(p, adamw_init(p), b)
+        return sp, opt, m, mesh.collectives
+
+    # the embedding's and the loss's backwards scatter with atomics on the
+    # card: bit-for-bit training needs the deterministic kernels
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    store = ROOT / "build" / "pg_store_tp"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1,
+                            **({"device_id": dev} if dev.type == "cuda" else {}))
+    try:
+        try:
+            got = one_step(ShardMesh.from_process_group(device=dev))
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
+        want = one_step(ShardMesh([dev], 1, 1))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = all(torch.equal(a, c) for tg, tw in ((got[0].blocks[0], want[0].blocks[0]),
+                                                 (got[1].m.blocks[0], want[1].m.blocks[0]),
+                                                 (got[1].v.blocks[0], want[1].v.blocks[0]))
+                for (_, a), (_, c) in zip(tree_items(tg), tree_items(tw)))
+    equal = equal and all(torch.equal(got[2][k], want[2][k]) for k in ("loss", "grad_norm"))
+    emit(dict(phase="tp_group_training", backend=backend, world_size=1, model=cfg.name,
+              layers=cfg.n_layers, batch=list(batch), bit_equal=equal,
+              group_collectives=got[3], one_process_collectives=want[3],
+              loss=float(got[2]["loss"]),
+              note="one rank: checks the group path, measures no scaling"))
+    require(equal, "the train step through the group mesh differs from one process")
+    require(got[3] > want[3], "no collective ran in the group step's backward")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2800,6 +3390,26 @@ def main() -> int:
     emit(dict(phase="expert_parallel_launches", **ep_launches))
     for name, n in ep_launches.items():
         require(n > 0, f"kernel {name} was not launched on the expert-parallel path")
+
+    # 15. the LM sharded by its specs over logical ranks of the card (and one
+    # NCCL rank), with launch counts; one card measures no scaling
+    # (only the meshed calls count, not the mesh=None baselines beside them;
+    # then each kernel against its plain version on the inputs of the last
+    # call of each shape the meshed calls made)
+    calls = MeshCalls()
+    for run_cell, cfg in ((tp_dense_phase, lm_cfgs["dense"]),
+                          (tp_heads_phase, get_config("smollm-135m")),
+                          (tp_moe_phase, lm_cfgs["moe"]), (tp_train_phase, lm_cfgs["dense"])):
+        run_cell(cfg, dev, calls)
+        calls.check()
+    by_cell = calls.by_cell()
+    tp_launches = {k: sum(c[k] for c in by_cell.values()) for k in ("flash_attention",
+                                                                    "grouped_ffn")}
+    emit(dict(phase="tp_launches", **tp_launches, by_cell=by_cell, by_call=calls.launches))
+    for cell, n in by_cell.items():
+        require(n["flash_attention"] > 0, f"the flash kernel was not launched in {cell}")
+    require(by_cell["15c"]["grouped_ffn"] > 0, "the grouped FFN kernel was not launched in 15c")
+    tp_group_phase(dataclasses.replace(lm_cfgs["dense"], n_layers=2), dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -28,8 +28,25 @@ group.  A collective takes one tensor per local rank (per local shard for
 :meth:`ShardMesh.all_gather`) and returns one per local rank, and adds one
 to :attr:`ShardMesh.collectives`, where the reference counts the
 collectives of its compiled HLO.  A float8 payload goes over the wire as
-its ``uint8`` bytes (gloo refuses float8).  The group backend's collectives
-are not differentiable: they raise when autograd records.
+its ``uint8`` bytes (gloo refuses float8).
+
+Autograd passes through :meth:`ShardMesh.psum`, :meth:`~ShardMesh.pmean`,
+:meth:`~ShardMesh.all_gather_axis`, :meth:`~ShardMesh.psum_scatter` and
+:meth:`~ShardMesh.all_to_all` in both backends, each rank's gradient being
+its share of the transposed collective, as ``jax.lax``'s transposes give
+under ``shard_map``: a psum's backward is a psum, an all-gather's a
+psum-scatter, a psum-scatter's an all-gather, an all-to-all's an
+all-to-all.  One process differentiates through its device copies and
+sums (ranks that share a device share one result, each through a view of
+its own, so each rank's gradient reaches it as one addend, as under a
+group); a group runs each transpose as a collective of its own
+(:class:`_Transposed`), which adds one to ``collectives`` like any other,
+so under a group the collectives of a backward count too.  Rank ``r``'s
+gradients are the derivatives of the sum over ranks of what each rank
+differentiates: a value replicated over an axis and differentiated on
+every rank of it counts once a rank (``models.lm.loss_fn`` hands each rank
+its share).  :meth:`ShardMesh.all_gather` (the sharded GNN exchange) stays
+forward only under a group and raises when autograd records.
 """
 from __future__ import annotations
 
@@ -56,6 +73,27 @@ def default_devices(device: Optional[Device] = None) -> List[torch.device]:
     if dev.type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [dev]
+
+
+class _Transposed(torch.autograd.Function):
+    """A group collective ``run`` whose backward is the collective
+    ``transpose`` of the output gradient (both take and return this rank's
+    one tensor)."""
+
+    @staticmethod
+    def forward(ctx, run, transpose, x):
+        ctx.transpose = transpose
+        return run(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.transpose(g.contiguous())
+
+
+def _differentiable(run, transpose, x: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Transposed.apply(run, transpose, x)
+    return run(x)
 
 
 def _axis(axis: str) -> str:
@@ -183,6 +221,10 @@ class ShardMesh:
             raise ValueError(f"{len(bufs)} buffers for {len(local)} shards")
         self.collectives += 1
         if self.group is not None:
+            if torch.is_grad_enabled() and bufs[0].requires_grad:
+                raise NotImplementedError(
+                    "the process-group mesh's shards all_gather is not "
+                    "differentiable; run under torch.no_grad()")
             return [self._group_gather_shards(bufs[0])]
         if M == 1:
             return self._stack(bufs, [self.shard_device(j) for j in range(K)])
@@ -225,18 +267,19 @@ class ShardMesh:
             raise ValueError(f"all_to_all over {axis!r} needs a leading "
                              f"axis of {n}")
         if self.group is not None:
-            x = xs[0].contiguous()
-            out = torch.empty_like(x)
-            self._dist(dist.all_to_all_single, out, x, axis)
-            return [out]
+            def run(x):
+                out = torch.empty_like(x)
+                self._dist(dist.all_to_all_single, out, x.contiguous(), axis)
+                return out
+            return [_differentiable(run, lambda g: self.all_to_all([g], axis)[0],
+                                    xs[0])]
         dtype = xs[0].dtype
-        wire = [x.view(_WIRE.get(dtype, dtype)) for x in xs]
+        wire = [x.view(_WIRE[dtype]) for x in xs] if dtype in _WIRE else xs
         out = []
         for r in self.local_ranks:
             i, dev = self.axis_index(r, axis), self.rank_device(r)
-            out.append(torch.stack([self._of(wire, p)[i].to(dev)
-                                    for p in self._peers(r, axis)])
-                       .view(dtype))
+            y = torch.stack([self._of(wire, p)[i].to(dev) for p in self._peers(r, axis)])
+            out.append(y.view(dtype) if dtype in _WIRE else y)
         return out
 
     def psum(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
@@ -259,10 +302,13 @@ class ShardMesh:
         if any(x.shape[dim] % n for x in xs):
             raise ValueError(f"dim {dim} does not split over {n} ranks")
         if self.group is not None:
-            x = xs[0].movedim(dim, 0).contiguous()
-            out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-            self._dist(dist.reduce_scatter_tensor, out, x, axis)
-            return [out.movedim(0, dim)]
+            def run(x):
+                x = x.movedim(dim, 0).contiguous()
+                out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+                self._dist(dist.reduce_scatter_tensor, out, x, axis)
+                return out.movedim(0, dim).contiguous()
+            return [_differentiable(
+                run, lambda g: self.all_gather_axis([g], axis, dim)[0], xs[0])]
         return [s.chunk(n, dim)[self.axis_index(r, axis)]
                 for r, s in zip(self.local_ranks, self._sum(xs, axis))]
 
@@ -272,9 +318,12 @@ class ShardMesh:
         tensors concatenated along ``dim`` in axis order."""
         n = self._begin(xs, axis)
         if self.group is not None:
-            x = xs[0].movedim(dim, 0).contiguous()
-            got = self._dist_gather(x, axis)
-            return [got.reshape(n * x.shape[0], *x.shape[1:]).movedim(0, dim)]
+            def run(x):
+                x = x.movedim(dim, 0).contiguous()
+                got = self._dist_gather(x, axis)
+                return got.reshape(n * x.shape[0], *x.shape[1:]).movedim(0, dim).contiguous()
+            return [_differentiable(
+                run, lambda g: self.psum_scatter([g], axis, dim)[0], xs[0])]
         built: Dict[Tuple, torch.Tensor] = {}
         out = []
         for r in self.local_ranks:
@@ -282,7 +331,7 @@ class ShardMesh:
             if (peers, dev) not in built:
                 built[peers, dev] = torch.cat(
                     [self._of(xs, p).to(dev) for p in peers], dim=dim)
-            out.append(built[peers, dev])
+            out.append(built[peers, dev].view_as(built[peers, dev]))
         return out
 
     # -------------------------------------------------------------- helpers
@@ -298,9 +347,11 @@ class ShardMesh:
 
     def _sum(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
         if self.group is not None:
-            out = xs[0].contiguous().clone()
-            self._dist(dist.all_reduce, out, None, axis)
-            return [out]
+            def run(x):
+                out = x.contiguous().clone()
+                self._dist(dist.all_reduce, out, None, axis)
+                return out
+            return [_differentiable(run, lambda g: self.psum([g], axis)[0], xs[0])]
         built: Dict[Tuple, torch.Tensor] = {}
         out = []
         for r in self.local_ranks:
@@ -310,7 +361,7 @@ class ShardMesh:
                 for p in peers[1:]:
                     acc = acc + self._of(xs, p).to(dev)
                 built[peers, dev] = acc
-            out.append(built[peers, dev])
+            out.append(built[peers, dev].view_as(built[peers, dev]))
         return out
 
     def _dist_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -326,11 +377,6 @@ class ShardMesh:
         """``call(out, x, group=<axis subgroup>)`` (``call(out, group=...)``
         when ``x`` is None: an in-place reduction) on the wire dtype's
         views."""
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (out, x)):
-            raise NotImplementedError(
-                "the process-group mesh's collectives are not "
-                "differentiable; run under torch.no_grad()")
         args = [t.view(_WIRE.get(t.dtype, t.dtype)) for t in (out, x)
                 if t is not None]
         call(*args, group=self._axis_groups[_axis(axis)])

@@ -4,7 +4,8 @@ Ports ``repro.kernels.moe_dispatch.ops`` (ops.py:28-111): top-k routing
 with a degree-sort of assignments by expert (``route``), a gather of tokens
 into per-expert capacity buckets whose dead slots are zero (``dispatch``),
 the grouped SwiGLU FFN over the buckets (``grouped_ffn``), and a weighted
-scatter back to tokens (``combine``).  ``grouped_ffn`` takes the plain
+fixed-order sum back to tokens (``combine``; the reference's
+``segment_sum``).  ``grouped_ffn`` takes the plain
 PyTorch version (``ref.py``) for CPU tensors and launches the hand-written
 kernel (``kernel.py``) for CUDA tensors, which raises rather than falling
 back.  All functions are device-local.
@@ -33,6 +34,7 @@ class Routing:
 
     bucket_idx: torch.Tensor  # (T*k,) position in the flattened (E*C) buckets
     token_idx: torch.Tensor   # (T*k,) source token of each assignment (sorted order)
+    unsort: torch.Tensor      # (T*k,) sorted position of token t's j-th choice, at t*k + j
     keep: torch.Tensor        # (T*k,) bool — False = dropped by capacity
     weight: torch.Tensor      # (T*k,) routing weight of each assignment
     counts: torch.Tensor      # (E,) live tokens per expert (pre-capacity-clip)
@@ -63,11 +65,14 @@ def route(x, router_w, top_k: int, capacity: int, *, norm_topk: bool = True,
     bucket_idx = torch.where(keep, se * capacity + pos,
                              torch.full_like(se, E * capacity))  # sentinel slot
 
+    unsort = torch.empty_like(order)
+    unsort[order] = torch.arange(T * top_k, device=x.device)
+
     counts = torch.bincount(flat_e, minlength=E)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     f = counts.float() / max(T * top_k, 1)
     aux = E * torch.sum(f * probs.mean(0))
-    return Routing(bucket_idx=bucket_idx, token_idx=st, keep=keep,
+    return Routing(bucket_idx=bucket_idx, token_idx=st, unsort=unsort, keep=keep,
                    weight=sw.to(x.dtype), counts=counts, aux_loss=aux)
 
 
@@ -80,13 +85,23 @@ def dispatch(x, r: Routing, n_experts: int, capacity: int) -> torch.Tensor:
 
 
 def combine(y_buckets, r: Routing, n_tokens: int) -> torch.Tensor:
-    """Scatter expert outputs back to tokens, applying routing weights."""
+    """Gather expert outputs back to tokens, applying routing weights.
+
+    Every token has exactly ``top_k`` assignments, so the weighted outputs
+    are put back in token-major order (``r.unsort``) and each token's
+    ``top_k`` rows are added left to right in its choice order, in the
+    outputs' dtype: the same sum on every run and on both devices, where a
+    scatter-add (``index_add_``) adds with atomics on the card in an order
+    that changes between runs."""
     E, C, d = y_buckets.shape
     flat = torch.cat([y_buckets.reshape(E * C, d),
                       y_buckets.new_zeros((1, d))])
     vals = flat[r.bucket_idx] * (r.weight * r.keep)[:, None]
-    out = torch.zeros((n_tokens, d), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, r.token_idx, vals)
+    per_token = vals[r.unsort].reshape(n_tokens, -1, d)
+    out = per_token[:, 0]
+    for j in range(1, per_token.shape[1]):
+        out = out + per_token[:, j]
+    return out
 
 
 def _forward(buckets, w_gate, w_up, w_down, counts):

@@ -1,15 +1,21 @@
 """Step factories: train_step / prefill_step / decode_step closures for one
-architecture, as ``repro.launch.steps`` builds them (one device, no mesh).
-Shared by the trainer (``train.py``), the serving loop (``serve.py``) and
-``chip_smoke.py``."""
+(arch, mesh) pair, as ``repro.launch.steps`` builds them.  Shared by the
+trainer (``train.py``), the serving loop (``serve.py``) and
+``chip_smoke.py``.  ``mesh=None`` is one device; a
+:class:`~repro_torch.core.exchange.ShardMesh` lays the model out by its
+specs (``models/lm.py``), FSDP and ZeRO-1 under ``runtime_flags.OPT``."""
 from __future__ import annotations
+
+from typing import List
 
 import torch
 
+from .. import runtime_flags
 from ..configs.base import ArchConfig
 from ..models import lm
-from ..models.common import tree_items, tree_unflatten
-from ..optim.adamw import AdamWState, adamw_update
+from ..models.common import (DP, ParamLeaf, ShardedTree, shard_params,
+                             spec_axes, tree_items, tree_map, tree_unflatten)
+from ..optim.adamw import AdamWState, adamw_update, shard_state, zero1_dim
 from ..optim.schedule import wsd_schedule
 
 
@@ -18,7 +24,46 @@ def opt_state_bits(cfg: ArchConfig) -> int:
     return 8 if (cfg.moe and cfg.param_count() > 1e11) else 32
 
 
-def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4,
+def maybe_fsdp(tmpl):
+    """``OPT["fsdp_params"]``: also shard every parameter's largest
+    unsharded dimension of at least 256 (layer-stack dimensions are
+    smaller) over the data axes, as the reference's ``maybe_fsdp``.  Such a
+    leaf is all-gathered over data where a layer uses it
+    (``ShardedTree.gathered``) and its gradient comes back reduce-scattered
+    (the all-gather's transpose): ZeRO-3."""
+    if not runtime_flags.OPT["fsdp_params"]:
+        return tmpl
+
+    def f(l: ParamLeaf):
+        if any(s == DP for s in l.spec):
+            return l  # already data-sharded (expert-parallel weights)
+        cand = [i for i, s in enumerate(l.spec) if s is None and l.shape[i] >= 256]
+        if not cand:
+            return l
+        i = max(cand, key=lambda j: l.shape[j])
+        return ParamLeaf(l.shape, l.spec[:i] + (DP,) + l.spec[i + 1:], l.init, l.scale,
+                         l.dtype)
+
+    return tree_map(f, tmpl)
+
+
+def _reduce(mesh, gs: List[torch.Tensor], p_spec, m_spec) -> List[torch.Tensor]:
+    """One leaf's gradients, one a local rank, each the partial derivative
+    of what its process differentiates, completed over the axes the leaf
+    is replicated on: a psum over model, then over data a psum or, where
+    the moment splits the leaf over data (ZeRO-1), a psum-scatter into the
+    moment's block."""
+    held = {a for e in p_spec for a in spec_axes(e)}
+    if "model" not in held:
+        gs = mesh.psum(gs, "model")
+    if "data" not in held:
+        dim = zero1_dim(p_spec, m_spec)
+        gs = (mesh.psum(gs, "data") if dim is None
+              else mesh.psum_scatter(gs, "data", dim))
+    return gs
+
+
+def make_train_step(cfg: ArchConfig, mesh=None, *, peak_lr: float = 3e-4,
                     total_steps: int = 10_000, microbatches: int = 1,
                     accum_dtype: torch.dtype = torch.float32):
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
@@ -30,8 +75,26 @@ def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4,
 
     ``microbatches > 1``: gradient accumulation over equal splits of the
     batch, summed in ``accum_dtype`` and divided by the count, the loss
-    averaged, as the reference's ``lax.scan`` does."""
+    averaged, as the reference's ``lax.scan`` does.
+
+    With ``mesh``: ``params`` and ``opt_state`` are sharded on entry (by
+    :func:`maybe_fsdp` of the model template and
+    :func:`~repro_torch.optim.adamw.adamw_state_template`, both read when
+    the step is made) unless they already are, and the sharded ones are
+    returned; ``batch`` holds the rows of the process's data shards.  Each
+    process differentiates its share of the loss (``lm.loss_fn``); each
+    leaf's gradient is completed over the axes it is replicated on
+    (:func:`_reduce`: with the share's 1 / (n_data x n_model) that is the
+    reference's pmean over data) into the moments' layout, where a
+    microbatch's gradient accumulates, so under ZeRO-1 the accumulator is
+    split over data as the moments are.  A data shard's microbatch ``i``
+    is its rows ``i * B_loc / microbatches`` on; with equal blocks that is
+    the reference's gradient up to summation order, except that the moe
+    family routes each block's tokens together."""
     bits = opt_state_bits(cfg)
+    if mesh is not None:
+        return _mesh_train_step(cfg, mesh, peak_lr=peak_lr, total_steps=total_steps,
+                                microbatches=microbatches, accum_dtype=accum_dtype)
 
     def train_step(params, opt_state: AdamWState, batch):
         leaves = [t for _, t in tree_items(params)]
@@ -70,13 +133,83 @@ def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def _mesh_train_step(cfg: ArchConfig, mesh, *, peak_lr, total_steps, microbatches,
+                     accum_dtype):
+    bits = opt_state_bits(cfg)
+    if bits != 32:
+        raise NotImplementedError(f"{cfg.name}: 8-bit AdamW moments are not sharded "
+                                  "over a mesh yet")
+    tmpl = maybe_fsdp(lm.model_template(cfg))
+    n_local = len(mesh.local_shards)
+
+    def micro(batch, i):
+        """Microbatch ``i`` of every local data shard, in shard order."""
+        return {k: v.reshape(n_local, microbatches, -1, *v.shape[1:])[:, i]
+                .reshape(-1, *v.shape[1:]) for k, v in batch.items()}
+
+    def train_step(params, opt_state: AdamWState, batch):
+        sp = shard_params(params, tmpl, mesh)
+        opt_state = shard_state(opt_state, sp)
+        p_specs = [s for _, s in tree_items(sp.specs)]
+        m_specs = [s for _, s in tree_items(opt_state.m.specs)]
+        leaves = [[t for _, t in tree_items(b)] for b in sp.blocks]
+        flat = [t for ls in leaves for t in ls]
+        flags = [t.requires_grad for t in flat]
+        acc, lsum = None, None
+        try:
+            for t in flat:
+                t.requires_grad_(True)
+            for i in range(microbatches):
+                b = batch if microbatches == 1 else micro(batch, i)
+                losses = lm.shard_losses(cfg, sp, b, mesh)
+                got = torch.autograd.grad(lm.mesh_objective(losses, mesh), flat)
+                n = len(leaves[0])
+                per_rank = [got[j * n:(j + 1) * n] for j in range(len(leaves))]
+                red = [_reduce(mesh, [g[li] for g in per_rank], p_specs[li], m_specs[li])
+                       for li in range(n)]
+                if acc is None:
+                    # ranks of one process may share a reduced gradient:
+                    # each accumulates into a copy of its own
+                    acc = red if microbatches == 1 else \
+                        [[g.to(accum_dtype, copy=True) for g in gs] for gs in red]
+                else:
+                    for aa, gs in zip(acc, red):
+                        for a, g in zip(aa, gs):
+                            a.add_(g)
+                l = lm.mesh_loss(losses, mesh)
+                lsum = l if lsum is None else lsum + l
+                del losses, got, per_rank, red
+        finally:
+            for t, f in zip(flat, flags):
+                t.requires_grad_(f)
+        if microbatches > 1:
+            acc = [[a.div_(microbatches) for a in aa] for aa in acc]
+        grads = ShardedTree(mesh, opt_state.m.template, opt_state.m.specs,
+                            [tree_unflatten(sp.template, [aa[j] for aa in acc])
+                             for j in range(len(leaves))])
+        del acc
+        lr = wsd_schedule(opt_state.step, peak_lr=peak_lr, total=total_steps)
+        sp, opt_state, gnorm = adamw_update(sp, opt_state, grads, lr, state_bits=bits)
+        return sp, opt_state, {"loss": lsum / microbatches, "grad_norm": gnorm, "lr": lr}
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, mesh=None):
     """``prefill_step(params, batch)`` -> next-token logits (B, vocab).
     ``batch`` goes to ``lm.forward`` as it is: ``tokens``, and
     ``patch_embeds`` (vlm) or ``frames`` (audio) where the family takes
-    them."""
+    them.  With ``mesh`` only the last position's logits are all-gathered
+    over the vocabulary; ``params`` whole (sharded each call) or a
+    :class:`~repro_torch.models.common.ShardedTree`."""
     @torch.no_grad()
     def prefill_step(params, batch):
+        if mesh is not None:
+            sp = shard_params(params, lm.model_template(cfg), mesh)
+            hs, _ = lm.hidden_mesh(cfg, sp, batch, mesh)
+            last = lm.logits_mesh(cfg, sp, [h[:, -1:] for h in hs], mesh,
+                                  {"tokens": batch["tokens"][:, -1:]})
+            return lm.join_rows(last, mesh, batch["tokens"])[:, -1]
         out = lm.forward(cfg, params, batch)
         logits = out[0] if cfg.family == "moe" else out
         return logits[:, -1]
@@ -84,11 +217,12 @@ def make_prefill_step(cfg: ArchConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, mesh=None):
     """``decode_step(params, cache, tokens, pos)`` -> (logits (B, vocab),
-    cache); the cache is updated in place."""
+    cache); the cache is updated in place (with ``mesh``, a
+    :class:`~repro_torch.models.common.ShardedTree` from ``lm.init_cache``)."""
     def decode_step(params, cache, tokens, pos):
-        logits, cache = lm.decode_step(cfg, params, cache, tokens, pos)
+        logits, cache = lm.decode_step(cfg, params, cache, tokens, pos, mesh=mesh)
         return logits[:, -1], cache
 
     return decode_step

@@ -1,25 +1,37 @@
-"""Shared model substrate: parameter templates, norms, RoPE.
+"""Shared model substrate: parameter templates and their sharding specs,
+norms, RoPE.
 
 Parameters are declared as :class:`ParamLeaf` templates (shape, dtype, init
-scale) in nested dicts, the same trees as ``repro.models.common``; a layer
-stack is a leading axis added by :func:`stack_templates`.
-:func:`materialize` turns a template tree into tensors on a device.  The
-sharding half of the reference (``spec`` entries, ``abstractify``,
-``shard_hint``) has no work to do on one device; ``spec`` is kept so the
-templates stay the reference's, and is not read.
+scale, logical spec) in nested dicts, the same trees as
+``repro.models.common``; a layer stack is a leading axis added by
+:func:`stack_templates`.  :func:`materialize` turns a template tree into
+tensors on a device.
+
+The spec half is the reference's over a
+:class:`~repro_torch.core.exchange.ShardMesh`: ``"model"`` is the
+tensor-parallel axis, ``DP`` (every batch axis) and ``DPM`` (every axis)
+placeholders resolve against the mesh, whose shards axis is the
+reference's ``"data"`` (and ``"pod"``) (:func:`resolve_spec`), and a mesh
+axis that does not divide its dimension is dropped (:func:`sanitize_spec`).
+:func:`shard_params` is the explicit form of the reference's
+``NamedSharding`` placement: each local rank gets the block of every leaf
+that its spec names, in a :class:`ShardedTree`; :func:`unshard_params`
+undoes it, and :func:`shard_hint` checks or moves an activation to a
+spec's layout.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve
 
-DP ="__dp__"    # the reference's batch-axes placeholder in specs (unused here)
+DP = "__dp__"    # every batch axis of the mesh (its shards axis, "data")
+DPM = "__dpm__"  # every mesh axis, batch then model (batch-sharded attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +122,273 @@ def materialize(gen: torch.Generator, tree, dtype_override: Optional[str] = None
         return t.mul_(scale).to(dt)
 
     return tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# specs and sharding over a ShardMesh
+# ---------------------------------------------------------------------------
+
+def resolve_spec(spec: Tuple, mesh) -> Tuple:
+    """Replace the ``DP`` / ``DPM`` placeholders with the mesh's axes, as
+    ``repro.models.common.resolve_spec`` does for a ("data", "model")
+    mesh: ``DP`` -> ``"data"``, ``DPM`` -> ``("data", "model")``."""
+    return tuple("data" if s == DP else ("data", "model") if s == DPM else s
+                 for s in spec)
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _axis_size(mesh, entry) -> int:
+    n = 1
+    for a in spec_axes(entry):
+        n *= mesh.axis_size(a)
+    return n
+
+
+def sanitize_spec(spec: Tuple, shape, mesh) -> Tuple:
+    """Drop the mesh axes that do not divide their dimension (3 KV heads on
+    a 4-wide model axis): that dimension is replicated."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(e if dim % _axis_size(mesh, e) == 0 else None
+                 for dim, e in zip(shape, spec))
+
+
+def spec_tree(tree, mesh):
+    """Each template leaf's spec, resolved against ``mesh``."""
+    return tree_map(lambda l: resolve_spec(l.spec, mesh), tree)
+
+
+def leaf_spec(l: ParamLeaf, mesh) -> Tuple:
+    """A template leaf's resolved, sanitized spec: the layout it has on
+    ``mesh``."""
+    return sanitize_spec(resolve_spec(l.spec, mesh), l.shape, mesh)
+
+
+def block_slices(spec: Tuple, shape, mesh, r: int) -> Tuple[slice, ...]:
+    """Rank ``r``'s block of a value of ``shape`` laid out by the resolved,
+    sanitized ``spec``: a dimension split over an axis tuple takes the
+    block of the ranks' mixed-radix index, the first axis major."""
+    out = []
+    for dim, e in zip(shape, spec):
+        idx, n = 0, 1
+        for a in spec_axes(e):
+            idx = idx * mesh.axis_size(a) + mesh.axis_index(r, a)
+            n *= mesh.axis_size(a)
+        out.append(slice(idx * (dim // n), (idx + 1) * (dim // n)))
+    return tuple(out)
+
+
+def _own_block(t: torch.Tensor, spec: Tuple, mesh, r: int) -> torch.Tensor:
+    """Rank ``r``'s block of ``t`` on its device, contiguous; differentiable
+    in ``t``.  Where ``r`` is its process's only rank and the block is the
+    whole of ``t``, ``t`` itself (moved, if it lies elsewhere), which the
+    train step updates in place as ``mesh=None``'s does; any other block
+    shares no storage with ``t`` (ranks of one process update their blocks
+    in place)."""
+    sl = block_slices(spec, t.shape, mesh, r)
+    dev = mesh.rank_device(r)
+    if len(mesh.local_ranks) == 1 and all(s.stop - s.start == n for s, n in zip(sl, t.shape)):
+        return t.to(dev).contiguous()
+    b = t[sl].to(dev).contiguous()
+    if b.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+        b = b.clone()
+    return b
+
+
+@dataclasses.dataclass
+class ShardedTree:
+    """A tree split over a :class:`~repro_torch.core.exchange.ShardMesh`:
+    ``blocks[j]`` is local rank ``mesh.local_ranks[j]``'s tree of blocks on
+    its device, ``template`` the :class:`ParamLeaf` tree it was laid out by
+    and ``specs`` each leaf's resolved, sanitized spec."""
+
+    mesh: object
+    template: Dict
+    specs: Dict
+    blocks: List[Dict]
+
+    def sub(self, key: str) -> "ShardedTree":
+        return ShardedTree(self.mesh, self.template[key], self.specs[key],
+                           [b[key] for b in self.blocks])
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.template
+
+    def layer(self, i: int) -> "ShardedTree":
+        """Layer ``i`` of a stacked tree (views, no copy)."""
+        return ShardedTree(
+            self.mesh,
+            tree_map(lambda l: ParamLeaf(l.shape[1:], l.spec[1:], l.init, l.scale,
+                                         l.dtype), self.template),
+            tree_map(lambda s: s[1:], self.specs),
+            [layer(b, i) for b in self.blocks])
+
+    def n_layers(self) -> int:
+        return next(l for _, l in tree_items(self.template)).shape[0]
+
+    def local(self, key: str) -> List[torch.Tensor]:
+        """Every local rank's block of leaf ``key``, as laid out."""
+        return [b[key] for b in self.blocks]
+
+    def gathered(self, key: str) -> Tuple[List[torch.Tensor], Tuple]:
+        """Leaf ``key`` with its dimensions sharded over data (FSDP)
+        all-gathered over data, where a layer uses it, and the spec it then
+        has.  Autograd returns its gradient reduce-scattered."""
+        xs, spec = self.local(key), self.specs[key]
+        for dim, e in enumerate(spec):
+            if "data" in spec_axes(e):
+                if e != "data":
+                    raise ValueError(f"{key}: spec {spec} shards a dim over data "
+                                     "and another axis")
+                xs = self.mesh.all_gather_axis(xs, "data", dim)
+        return xs, tuple(None if e == "data" else e for e in spec)
+
+
+def shard_params(params, template, mesh) -> ShardedTree:
+    """Each local rank's block of every leaf of ``params`` (a tree of whole
+    tensors of ``template``'s shapes), by the leaf's resolved, sanitized
+    spec, on the rank's device.  A :class:`ShardedTree` is returned as it
+    is.  Differentiable in the whole tensors: one process's gradients
+    through the blocks come back summed over the copies."""
+    if isinstance(params, ShardedTree):
+        return params
+    specs = tree_map(lambda l: leaf_spec(l, mesh), template)
+    flat = list(tree_items(params))
+    spec_flat = [s for _, s in tree_items(specs)]
+    if len(flat) != len(spec_flat):
+        raise ValueError(f"{len(flat)} leaves for a template of {len(spec_flat)}")
+    blocks = [tree_unflatten(params, [_own_block(t, sp, mesh, r)
+                                      for (_, t), sp in zip(flat, spec_flat)])
+              for r in mesh.local_ranks]
+    return ShardedTree(mesh, template, specs, blocks)
+
+
+def shard_zeros(template, mesh, dtype_override: Optional[str] = None) -> ShardedTree:
+    """A :class:`ShardedTree` of zeros by ``template`` (a cache, moments):
+    each local rank allocates its blocks only."""
+    specs = tree_map(lambda l: leaf_spec(l, mesh), template)
+
+    def block(r):
+        def one(l: ParamLeaf, sp):
+            shape = [s.stop - s.start for s in block_slices(sp, l.shape, mesh, r)]
+            return torch.zeros(shape, dtype=torch_dtype(dtype_override or l.dtype),
+                               device=mesh.rank_device(r))
+        return tree_unflatten(template, [one(l, sp) for (_, l), (_, sp) in
+                                         zip(tree_items(template), tree_items(specs))])
+
+    return ShardedTree(mesh, template, specs, [block(r) for r in mesh.local_ranks])
+
+
+def unshard_params(sp: ShardedTree) -> Dict:
+    """The whole tree back from its blocks, on local rank 0's device: each
+    sharded dimension all-gathered over its axes (minor axis first).
+    Every rank of a process-group mesh must call it."""
+    mesh = sp.mesh
+    out = []
+    for (_, spec), xs in zip(tree_items(sp.specs),
+                             zip(*[[t for _, t in tree_items(b)] for b in sp.blocks])):
+        xs = list(xs)
+        for dim, e in enumerate(spec):
+            for a in reversed(spec_axes(e)):
+                xs = mesh.all_gather_axis(xs, a, dim)
+        out.append(xs[0])
+    return tree_unflatten(sp.template, out)
+
+
+def shard_hint(x, mesh, *spec):
+    """The layout ``spec`` names (``DP`` resolved, indivisible axes
+    dropped), as the reference's ``with_sharding_constraint``: a whole
+    tensor is moved to it, one block a local rank on the rank's device;
+    a list of blocks is checked to hold one a local rank, on its device.
+    Without a mesh ``x`` is returned as it is."""
+    if mesh is None:
+        return x
+    if isinstance(x, torch.Tensor):
+        s = sanitize_spec(resolve_spec(spec, mesh), x.shape, mesh)
+        return [x[block_slices(s, x.shape, mesh, r)].to(mesh.rank_device(r))
+                for r in mesh.local_ranks]
+    def on(t, d):
+        return t.device.type == d.type and d.index in (None, t.device.index)
+
+    if len(x) != len(mesh.local_ranks) or not all(
+            on(t, mesh.rank_device(r)) for t, r in zip(x, mesh.local_ranks)):
+        raise ValueError("blocks do not match the mesh's local ranks")
+    return x
+
+
+def join_blocks(xs: Sequence[torch.Tensor], mesh, device) -> torch.Tensor:
+    """The rows of this process's data shards, in order, on ``device``:
+    each local shard's block from its first local rank (model ranks hold
+    the same rows), concatenated on dim 0."""
+    first = {}
+    for x, r in zip(xs, mesh.local_ranks):
+        first.setdefault(mesh.axis_index(r, "data"), x)
+    return torch.cat([first[k].to(device) for k in sorted(first)])
+
+
+def whole_rows(xs: Sequence[torch.Tensor], mesh, device) -> torch.Tensor:
+    """The whole value of blocks split over data on dim 0 (replicated over
+    model), all-gathered over data, on ``device``."""
+    return mesh.all_gather_axis(list(xs), "data", 0)[0].to(device)
+
+
+def model_sharded(entry) -> bool:
+    return "model" in spec_axes(entry)
+
+
+def row_parallel(mesh, hs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                 w_spec: Tuple, *, full: bool) -> List[torch.Tensor]:
+    """``h @ w`` where ``w`` (contraction dim first) is laid out by
+    ``w_spec`` and each rank's ``h`` holds the whole contraction dim
+    (``full``) or the model rank's block of it.  Rows sharded over model:
+    each rank multiplies its block and the partial products are psummed
+    over model; rows replicated: every rank multiplies the whole."""
+    if model_sharded(w_spec[0]):
+        if full:
+            n = ws[0].shape[0]
+            hs = [h[..., mesh.axis_index(r, "model") * n:(mesh.axis_index(r, "model") + 1) * n]
+                  for h, r in zip(hs, mesh.local_ranks)]
+        return mesh.psum([h @ w for h, w in zip(hs, ws)], "model")
+    if not full:
+        hs = mesh.all_gather_axis(hs, "model", hs[0].dim() - 1)
+    return [h @ w for h, w in zip(hs, ws)]
+
+
+def split_heads(mesh, ys: Sequence[torch.Tensor], n_heads: int, head_dim: int,
+                sharded: bool) -> Tuple[List[torch.Tensor], List[range]]:
+    """A projection's output, (B, S, columns), as heads: when its columns
+    are sharded over model and the heads divide the axis, each rank's own
+    heads; otherwise every head (sharded columns all-gathered over model
+    first: they split mid-head).  Returns the (B, S, h, head_dim) tensors
+    and each rank's global head indices."""
+    M = mesh.model_axis
+    if sharded and n_heads % M == 0:
+        h = n_heads // M
+        heads = [range(mesh.axis_index(r, "model") * h, (mesh.axis_index(r, "model") + 1) * h)
+                 for r in mesh.local_ranks]
+    else:
+        if sharded:
+            ys = mesh.all_gather_axis(ys, "model", ys[0].dim() - 1)
+        heads = [range(n_heads)] * len(ys)
+    return ([y.reshape(*y.shape[:-1], len(hd), head_dim) for y, hd in zip(ys, heads)],
+            heads)
+
+
+def select_heads(t: torch.Tensor, have: range, need: Sequence[int]) -> torch.Tensor:
+    """The heads ``need`` of ``t`` (B, S, len(have), D), which holds heads
+    ``have``: a view when ``need`` is runs of equal length of consecutive
+    heads (flash attention's grouping), else one head per entry."""
+    need = list(need)
+    lo, hi = need[0], need[-1] + 1
+    runs = [need.count(j) for j in range(lo, hi)]
+    if len(set(runs)) == 1 and need == sorted(need):
+        return t[:, :, lo - have.start:hi - have.start]
+    idx = torch.as_tensor([j - have.start for j in need], device=t.device)
+    return t.index_select(2, idx)
 
 
 # ---------------------------------------------------------------------------

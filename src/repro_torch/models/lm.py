@@ -27,6 +27,21 @@ training keeps each block's input and recomputes the rest in backward;
 place and returns it: KV caches by slice writes, recurrent states by
 copying each block's new state into its cache views.
 
+With a :class:`~repro_torch.core.exchange.ShardMesh` (``mesh=``) the dense,
+vlm and moe families run laid out by their templates' specs, as the
+reference's GSPMD places them: the batch split over data, attention, FFNs
+and shared experts tensor parallel over model, the routed experts expert
+parallel, ``embed`` and ``head`` split over the vocabulary (a lookup masked
+to each rank's rows and psummed; logits all-gathered over model, so the
+loss is the mesh-less cross entropy on each data shard's rows).  Whole
+parameters are sharded on entry (:func:`~repro_torch.models.common
+.shard_params`); a :class:`~repro_torch.models.common.ShardedTree` is used
+as it is.  The batch holds the rows of the process's data shards, in
+order: the whole batch in one process, its shard's rows
+(``TokenPipeline.shard_for``) under a process group; outputs come back
+likewise.  The audio, ssm and hybrid families refuse a mesh
+(``NotImplementedError``).
+
 Dtypes follow the reference's: parameters and caches in the templates'
 dtype (bfloat16 unless overridden), the recurrences in float32.  The
 reference's decode *returns* the xLSTM states (mLSTM ``C``, ``n``, ``m``;
@@ -42,7 +57,7 @@ and calls these functions.
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -54,10 +69,12 @@ from . import attention as A
 from . import mamba2 as M2
 from . import moe as MOE
 from . import xlstm as XL
-from .common import (cross_entropy, layer, layer_norm, leaf, rms_norm,
+from .common import (ShardedTree, cross_entropy, join_blocks, layer, layer_norm, leaf,
+                     materialize, model_sharded, rms_norm, shard_params, shard_zeros,
                      sinusoidal_positions, stack_templates, tree_items)
 
 FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
+MESH_FAMILIES = ("dense", "vlm", "moe")
 VLM_PATCHES = 256  # stub vision prefix length for the vlm family
 
 
@@ -196,6 +213,19 @@ def cache_template(cfg: ArchConfig, batch: int, max_len: int) -> Dict:
     }
 
 
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, dtype: Optional[str] = None,
+               device=None, mesh=None):
+    """A zero cache by :func:`cache_template` (``dtype`` overrides every
+    leaf's): whole on ``device``, or with ``mesh`` a
+    :class:`~repro_torch.models.common.ShardedTree` laid out by the
+    template's specs (``batch`` the global batch)."""
+    tmpl = cache_template(cfg, batch, max_len)
+    if mesh is not None:
+        _require_mesh_family(cfg)
+        return shard_zeros(tmpl, mesh, dtype)
+    return materialize(None, tmpl, dtype_override=dtype, device=device)
+
+
 def _n_layers(stack: Dict) -> int:
     return next(t for _, t in tree_items(stack)).shape[0]
 
@@ -220,14 +250,13 @@ def _dense_block(cfg, p, h, positions, cache=None, pos=None):
     return h + MOE.dense_ffn(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps))
 
 
-def _mla_block(cfg, kind, p, h, positions, cache=None, pos=None, token_chunks=4,
-               mesh=None):
+def _mla_block(cfg, kind, p, h, positions, cache=None, pos=None, token_chunks=4):
     ao, _ = A.mla_attention(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                             positions, cache=cache, cache_index=pos)
     h = h + ao
     hn = rms_norm(h, p["ln2"], cfg.norm_eps)
     if kind == "moe":
-        y, aux = MOE.moe_layer(cfg, p["moe"], hn, mesh=mesh, token_chunks=token_chunks)
+        y, aux = MOE.moe_layer(cfg, p["moe"], hn, token_chunks=token_chunks)
         return h + y, aux
     return h + MOE.dense_ffn(p["ffn"], hn), None
 
@@ -267,8 +296,12 @@ def _remat(fn, *args):
     ``fn`` under ``torch.utils.checkpoint`` (its activations are recomputed
     in backward); otherwise just call it."""
     def needs_grad(a):
+        if isinstance(a, ShardedTree):
+            return needs_grad(a.blocks)
         if isinstance(a, dict):
             return any(needs_grad(v) for v in a.values())
+        if isinstance(a, (list, tuple)):
+            return any(needs_grad(v) for v in a)
         return isinstance(a, torch.Tensor) and a.requires_grad
 
     if torch.is_grad_enabled() and any(needs_grad(a) for a in args):
@@ -356,11 +389,17 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None
     (B, P, d); for audio, ``frames`` (B, T, d).  Each block is
     rematerialized when autograd records (:func:`_remat`).
 
-    ``mesh`` (a :class:`~repro_torch.core.exchange.ShardMesh`) runs the
-    routed experts expert-parallel (:func:`~repro_torch.models.moe
-    .moe_layer`); every other weight stays whole on ``x``'s device, where
-    the reference's GSPMD placement moves it without changing a value."""
+    ``mesh`` (a :class:`~repro_torch.core.exchange.ShardMesh`): the
+    layout of the module docstring; the logits (and the aux loss) on the
+    tokens' device."""
     _require_family(cfg)
+    if mesh is not None:
+        sp = _sharded(cfg, params, mesh)
+        hs, aux = hidden_mesh(cfg, sp, batch, mesh)
+        logits = join_rows(logits_mesh(cfg, sp, hs, mesh, batch), mesh, batch["tokens"])
+        if cfg.family == "moe":
+            return logits, aux[0].to(logits.device)
+        return logits
     fam = cfg.family
     tokens = batch["tokens"]
     S_tok = tokens.shape[1]
@@ -382,8 +421,8 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None
             if name not in params:
                 continue
             for i in range(_n_layers(params[name])):
-                x, aux = _remat(partial(_mla_block, cfg, kind, mesh=mesh),
-                                layer(params[name], i), x, positions)
+                x, aux = _remat(partial(_mla_block, cfg, kind), layer(params[name], i), x,
+                                positions)
                 if aux is not None:
                     aux_total = aux_total + aux
         return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux_total
@@ -408,8 +447,20 @@ def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None) -> torch.T
     cross-entropy in float32 with a 1e-4 z-loss over the text logits (vlm:
     the positions after the patches; audio: the decoder tokens), plus
     1e-3 x the summed router aux loss for the moe family unless it balances
-    with a router bias."""
-    out = forward(cfg, params, batch, mesh=mesh)
+    with a router bias.
+
+    With ``mesh``: the value is the mean over data shards of each shard's
+    loss (:func:`mesh_loss`); its gradient is this process's share
+    (:func:`mesh_objective`), so that differentiating it once in each
+    process differentiates the global loss once.  A leaf replicated over
+    an axis then holds a partial gradient on each rank of it, which a psum
+    over that axis completes (``launch.steps.make_train_step``); whole
+    parameters get their whole gradient through the sharding copies in
+    one process."""
+    if mesh is not None:
+        losses = shard_losses(cfg, _sharded(cfg, params, mesh), batch, mesh)
+        return _Reported.apply(mesh_objective(losses, mesh), mesh_loss(losses, mesh))
+    out = forward(cfg, params, batch)
     aux = 0.0
     if cfg.family == "moe":
         out, aux_total = out
@@ -424,10 +475,13 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
     """One decode step.  tokens: (B, 1); pos: the position in the sequence
     (the hybrid family writes its attention cache at ``pos`` mod the
     window).  The cache is updated in place and returned.  ``mesh`` as in
-    :func:`forward` (the MoE in one token chunk)."""
+    :func:`forward` (the MoE in one token chunk), the cache then a
+    :class:`~repro_torch.models.common.ShardedTree` (:func:`init_cache`)."""
     _require_family(cfg)
     fam = cfg.family
     pos = int(pos)
+    if mesh is not None:
+        return _decode_mesh(cfg, _sharded(cfg, params, mesh), cache, tokens, pos, mesh)
     x = params["embed"][tokens]
     positions = pos + torch.arange(tokens.shape[1], device=x.device)
 
@@ -441,8 +495,7 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
                 continue
             for i in range(_n_layers(params[name])):
                 x, _ = _mla_block(cfg, kind, layer(params[name], i), x, positions,
-                                  layer(cache[name], i), pos, token_chunks=1,
-                                  mesh=mesh)
+                                  layer(cache[name], i), pos, token_chunks=1)
     elif fam == "audio":
         max_len = cache["layers"]["k"].shape[2]
         x = x + sinusoidal_positions(max_len, cfg.d_model)[pos].to(x.device, x.dtype)
@@ -467,6 +520,222 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
                              positions, layer(cache["layers"], i),
                              layer(cache["shared"], i), wpos)
     return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), cache
+
+
+# ---------------------------------------------------------------------------
+# under a mesh (dense, vlm, moe)
+# ---------------------------------------------------------------------------
+
+def _require_mesh_family(cfg: ArchConfig) -> None:
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not run on a mesh yet; "
+            f"the families that do are {MESH_FAMILIES} (run it with mesh=None)")
+
+
+def _sharded(cfg: ArchConfig, params, mesh) -> ShardedTree:
+    _require_mesh_family(cfg)
+    return shard_params(params, model_template(cfg), mesh)
+
+
+def splits_rows(x: torch.Tensor, mesh) -> bool:
+    """Whether ``x``'s rows split over the process's data shards; when they
+    do not, every shard holds them all (``sanitize_spec``'s replication)."""
+    return x.shape[0] % len(mesh.local_shards) == 0
+
+
+def local_rows(x: torch.Tensor, mesh):
+    """Each local rank's block of ``x``, whose rows are those of the
+    process's data shards in order (the whole batch in one process), on
+    the rank's device; all of them when they do not split."""
+    if not splits_rows(x, mesh):
+        return [x.to(mesh.rank_device(r)) for r in mesh.local_ranks]
+    per = x.shape[0] // len(mesh.local_shards)
+    return [x[mesh.local_shards.index(mesh.axis_index(r, "data")) * per:][:per]
+            .to(mesh.rank_device(r)) for r in mesh.local_ranks]
+
+
+def join_rows(xs, mesh, like: torch.Tensor) -> torch.Tensor:
+    """The rows of the process's data shards, as ``like``'s were split."""
+    if not splits_rows(like, mesh):
+        return xs[0].to(like.device)
+    return join_blocks(xs, mesh, like.device)
+
+
+def _embed_mesh(sp: ShardedTree, tokens, mesh):
+    """The vocabulary-parallel lookup: each rank looks up the tokens in its
+    rows of ``embed``, zeroes the others, and the ranks' rows are psummed
+    over model (one nonzero addend: exact)."""
+    es, spec = sp.gathered("embed")
+    if not model_sharded(spec[0]):
+        return [e[t] for e, t in zip(es, tokens)]
+    out = []
+    for e, t, r in zip(es, tokens, mesh.local_ranks):
+        n = e.shape[0]
+        local = t - mesh.axis_index(r, "model") * n
+        hit = (local >= 0) & (local < n)
+        out.append(e[local.clamp(0, n - 1)] * hit[..., None].to(e.dtype))
+    return mesh.psum(out, "model")
+
+
+def logits_mesh(cfg: ArchConfig, sp: ShardedTree, hs, mesh, batch):
+    """Each rank's logits of its data shard over the whole vocabulary: its
+    vocabulary columns (``head``, or the tied ``embed``'s rows), all-gathered
+    over model; vlm keeps the text positions."""
+    if cfg.tie_embeddings:
+        ws, spec = sp.gathered("embed")
+        ls, sharded = [h @ w.T for h, w in zip(hs, ws)], model_sharded(spec[0])
+    else:
+        ws, spec = sp.gathered("head")
+        ls, sharded = [h @ w for h, w in zip(hs, ws)], model_sharded(spec[-1])
+    if sharded:
+        ls = mesh.all_gather_axis(ls, "model", ls[0].dim() - 1)
+    if cfg.family == "vlm":
+        ls = [l[:, -batch["tokens"].shape[1]:] for l in ls]
+    return ls
+
+
+def _dense_block_mesh(cfg, mesh, sp, hs, positions, cache=None, pos=None):
+    eps = cfg.norm_eps
+    hn = [rms_norm(h, w, eps) for h, w in zip(hs, sp.gathered("ln1")[0])]
+    ao, _ = A.gqa_attention(cfg, sp.sub("attn"), hn, positions, mesh=mesh, cache=cache,
+                            cache_index=pos)
+    if cfg.parallel_block:
+        fo = MOE.dense_ffn(sp.sub("ffn"), hn, mesh=mesh)
+        return [h + a + f for h, a, f in zip(hs, ao, fo)]
+    hs = [h + a for h, a in zip(hs, ao)]
+    hn = [rms_norm(h, w, eps) for h, w in zip(hs, sp.gathered("ln2")[0])]
+    return [h + f for h, f in zip(hs, MOE.dense_ffn(sp.sub("ffn"), hn, mesh=mesh))]
+
+
+def _moe_replicated(cfg, mesh, sp, hn, token_chunks):
+    """The MoE on a batch every data shard holds whole: each shard routes
+    its contiguous block of the B * S tokens (the reference's ``P(data,
+    None)`` on the flat tokens) and the blocks are all-gathered back; when
+    the tokens do not split either (a decode step of one sequence), every
+    shard routes them all."""
+    n = mesh.n_shards
+    if hn[0].shape[0] * hn[0].shape[1] % n:
+        return MOE.moe_layer(cfg, sp, hn, mesh=mesh, token_chunks=token_chunks)
+    blocks = []
+    for h, r in zip(hn, mesh.local_ranks):
+        flat = h.reshape(-1, h.shape[-1])
+        T = flat.shape[0] // n
+        blocks.append(flat[mesh.axis_index(r, "data") * T:][:T][None])
+    ys, aux = MOE.moe_layer(cfg, sp, blocks, mesh=mesh, token_chunks=token_chunks)
+    ys = mesh.all_gather_axis([y[0] for y in ys], "data", 0)
+    return [y.reshape(h.shape) for y, h in zip(ys, hn)], aux
+
+
+def _mla_block_mesh(cfg, kind, mesh, sp, hs, positions, cache=None, pos=None,
+                    token_chunks=4, split=True):
+    eps = cfg.norm_eps
+    hn = [rms_norm(h, w, eps) for h, w in zip(hs, sp.gathered("ln1")[0])]
+    ao, _ = A.mla_attention(cfg, sp.sub("attn"), hn, positions, mesh=mesh, cache=cache,
+                            cache_index=pos)
+    hs = [h + a for h, a in zip(hs, ao)]
+    hn = [rms_norm(h, w, eps) for h, w in zip(hs, sp.gathered("ln2")[0])]
+    if kind == "moe":
+        if split:
+            ys, aux = MOE.moe_layer(cfg, sp.sub("moe"), hn, mesh=mesh,
+                                    token_chunks=token_chunks)
+        else:
+            ys, aux = _moe_replicated(cfg, mesh, sp.sub("moe"), hn, token_chunks)
+        return [h + y for h, y in zip(hs, ys)], aux
+    return [h + f for h, f in zip(hs, MOE.dense_ffn(sp.sub("ffn"), hn, mesh=mesh))], None
+
+
+def _stacks(cfg, sp):
+    """(stack name, block kind) of the layer stacks, in order."""
+    if cfg.family == "moe":
+        return [(n, k) for n, k in (("dense_layers", "dense"), ("layers", "moe")) if n in sp]
+    return [("layers", "dense")]
+
+
+def hidden_mesh(cfg: ArchConfig, sp: ShardedTree, batch, mesh):
+    """The final-normed hidden states of each local rank's data shard and,
+    for the moe family, each rank's summed aux loss."""
+    split = splits_rows(batch["tokens"], mesh)
+    xs = _embed_mesh(sp, local_rows(batch["tokens"], mesh), mesh)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        xs = [torch.cat([pe.to(x.dtype), x], dim=1)
+              for pe, x in zip(local_rows(batch["patch_embeds"], mesh), xs)]
+    positions = torch.arange(xs[0].shape[1], device=xs[0].device)
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+    for name, kind in _stacks(cfg, sp):
+        stack = sp.sub(name)
+        for i in range(stack.n_layers()):
+            if cfg.family == "moe":
+                xs, a = _remat(partial(_mla_block_mesh, cfg, kind, mesh, split=split),
+                               stack.layer(i), xs, positions)
+                if a is not None:
+                    aux = [t + u for t, u in zip(aux, a)]
+            else:
+                xs = _remat(partial(_dense_block_mesh, cfg, mesh), stack.layer(i), xs,
+                            positions)
+    return [rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, sp.gathered("ln_f")[0])], aux
+
+
+def shard_losses(cfg: ArchConfig, sp: ShardedTree, batch, mesh) -> List[torch.Tensor]:
+    """Each local rank's loss of its data shard (the mesh-less
+    :func:`loss_fn` on the shard's rows, with the aux loss pmean'd over
+    data)."""
+    hs, aux = hidden_mesh(cfg, sp, batch, mesh)
+    out = []
+    for logits, tok, a in zip(logits_mesh(cfg, sp, hs, mesh, batch),
+                              local_rows(batch["tokens"], mesh), aux):
+        loss = cross_entropy(logits[:, :-1], tok[:, 1:])
+        if cfg.family == "moe" and not cfg.moe.aux_free_bias:
+            loss = loss + 1e-3 * a
+        out.append(loss)
+    return out
+
+
+def mesh_loss(losses: List[torch.Tensor], mesh) -> torch.Tensor:
+    """The global loss from :func:`shard_losses`: their pmean over data (no
+    gradient), on the first local rank's device."""
+    return mesh.pmean([l.detach() for l in losses], "data")[0]
+
+
+def mesh_objective(losses: List[torch.Tensor], mesh) -> torch.Tensor:
+    """What this process differentiates: the sum of its ranks' losses over
+    the mesh's ranks (n_data x n_model), so that the sum over every process
+    is the global loss, once."""
+    dev = losses[0].device
+    total = sum(l.to(dev) for l in losses)
+    return total / (mesh.n_shards * mesh.model_axis)
+
+
+class _Reported(torch.autograd.Function):
+    """``value`` as the result, the gradient to ``objective``."""
+
+    @staticmethod
+    def forward(ctx, objective, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@torch.no_grad()
+def _decode_mesh(cfg: ArchConfig, sp: ShardedTree, cache, tokens, pos: int, mesh):
+    if not isinstance(cache, ShardedTree):
+        raise ValueError("with a mesh the cache is a ShardedTree: lm.init_cache(..., mesh=)")
+    xs = _embed_mesh(sp, local_rows(tokens, mesh), mesh)
+    positions = pos + torch.arange(tokens.shape[1], device=xs[0].device)
+    for name, kind in _stacks(cfg, sp):
+        stack, cstack = sp.sub(name), cache.sub(name)
+        for i in range(stack.n_layers()):
+            if cfg.family == "moe":
+                xs, _ = _mla_block_mesh(cfg, kind, mesh, stack.layer(i), xs, positions,
+                                        cstack.layer(i), pos, token_chunks=1,
+                                        split=splits_rows(tokens, mesh))
+            else:
+                xs = _dense_block_mesh(cfg, mesh, stack.layer(i), xs, positions,
+                                       cstack.layer(i), pos)
+    hs = [rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, sp.gathered("ln_f")[0])]
+    return join_rows(logits_mesh(cfg, sp, hs, mesh, {"tokens": tokens}), mesh, tokens), cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,12 @@ dispatch -> grouped FFN (the CUDA kernel on the card) -> combine
 ``n_model`` model ranks it is the reference's expert-parallel body,
 :func:`_local_moe` (moe.py:54): tokens split over the data shards, experts
 ``E / n_data`` a data shard and FFN columns ``f / n_model`` a model rank
-(:func:`expert_shards`), buckets exchanged by ``all_to_all`` over data, the
-down projection reduced over model, and the ``moe_fp8_dispatch`` /
-``moe_rs_combine`` options of :mod:`repro_torch.runtime_flags`.
+(the blocks :func:`~repro_torch.models.common.shard_params` gives by
+:func:`moe_template`'s specs), buckets exchanged by ``all_to_all`` over
+data, the down projection reduced over model, and the
+``moe_fp8_dispatch`` / ``moe_rs_combine`` options of
+:mod:`repro_torch.runtime_flags`; the shared experts and the dense FFNs
+are tensor parallel over model (column blocks in, row block out, a psum).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from .. import runtime_flags
 from ..configs.base import ArchConfig
 from ..core.exchange import ShardMesh
 from ..kernels.moe_dispatch import ops as moe_ops
-from .common import DP, leaf
+from .common import (DP, ShardedTree, whole_rows, leaf, model_sharded, row_parallel,
+                     shard_hint, shard_params)
 
 
 def moe_template(cfg: ArchConfig) -> Dict:
@@ -51,34 +55,12 @@ def capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return max(8, int(n_tokens * mo.top_k / mo.n_routed * mo.capacity_factor))
 
 
-def expert_shards(p: Dict, mesh: ShardMesh) -> List[Tuple[torch.Tensor, ...]]:
-    """Each local rank's block of the routed experts, on its device: rank
-    (i, m) holds experts ``i * E_loc`` to ``(i + 1) * E_loc`` and FFN columns
-    ``m * f_loc`` to ``(m + 1) * f_loc`` — (E_loc, d, f_loc) of ``wg`` and
-    ``wu``, (E_loc, f_loc, d) of ``wd``, the reference's in_specs
-    ``P(data, None, "model")`` / ``P(data, "model", None)`` — contiguous,
-    so the kernel reads them without a copy a chunk."""
-    E, _, f = p["wg"].shape
-    n_data, n_model = mesh.n_shards, mesh.model_axis
-    if E % n_data or f % n_model:
-        raise ValueError(f"{E} experts x {f} columns do not split over a "
-                         f"{n_data} x {n_model} mesh")
-    E_loc, f_loc = E // n_data, f // n_model
-    out = []
-    for r in mesh.local_ranks:
-        i, m = divmod(r, n_model)
-        e, c = slice(i * E_loc, (i + 1) * E_loc), slice(m * f_loc, (m + 1) * f_loc)
-        dev = mesh.rank_device(r)
-        out.append(tuple(w.to(dev).contiguous() for w in
-                         (p["wg"][e, :, c], p["wu"][e, :, c], p["wd"][e, c, :])))
-    return out
-
-
-def _local_moe(cfg: ArchConfig, xs: Sequence[torch.Tensor], router, router_bias,
+def _local_moe(cfg: ArchConfig, xs: Sequence[torch.Tensor], routers, router_biases,
                experts: Sequence[Tuple[torch.Tensor, ...]], *, mesh: ShardMesh,
                capacity: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """The reference's per-device body (moe.py:54-132) on every local rank
-    at once: ``xs[j]`` (T_loc, d) and ``experts[j]`` on local rank
+    at once: ``xs[j]`` (T_loc, d), ``routers[j]`` (and the balancing bias,
+    or None) and ``experts[j]`` = (wg, wu, wd) blocks on local rank
     ``mesh.local_ranks[j]``'s device.  Returns per local rank the (T_loc, d)
     output and the aux loss (pmean'd over data).
 
@@ -92,11 +74,9 @@ def _local_moe(cfg: ArchConfig, xs: Sequence[torch.Tensor], router, router_bias,
     E, n_data, n_model = mo.n_routed, mesh.n_shards, mesh.model_axis
     E_loc, C = E // n_data, capacity
     d = xs[0].shape[-1]
-    rs = [moe_ops.route(x, router.to(x.device, x.dtype), mo.top_k, C,
-                        norm_topk=mo.norm_topk,
-                        router_bias=None if router_bias is None
-                        else router_bias.to(x.device))
-          for x in xs]
+    rs = [moe_ops.route(x, router.to(x.dtype), mo.top_k, C, norm_topk=mo.norm_topk,
+                        router_bias=bias)
+          for x, router, bias in zip(xs, routers, router_biases)]
     bs = [moe_ops.dispatch(x, r, E, C).reshape(n_data, E_loc, C, d)
           for x, r in zip(xs, rs)]
     # ---- expert-parallel all_to_all over the data axis ----------------------
@@ -140,6 +120,37 @@ def _local_moe(cfg: ArchConfig, xs: Sequence[torch.Tensor], router, router_bias,
     return outs, aux
 
 
+def _moe_mesh(cfg: ArchConfig, sp: ShardedTree, xs: Sequence[torch.Tensor], *,
+              mesh: ShardMesh, token_chunks: int):
+    """The routed experts on each local rank's (T_loc, d) tokens, in
+    ``token_chunks`` rounds of T_loc / token_chunks contiguous tokens when
+    that divides, else one.  A block's routing, capacity and output depend
+    on its own tokens only (the experts of every shard serve it through
+    the all-to-all), so a round of each shard's next block gives every
+    block the reference's result, whose chunks group the blocks across
+    shards instead: no token moves between shards first.  The aux loss is
+    the mean over rounds, as the reference's over chunks."""
+    routers = sp.gathered("router")[0]
+    biases = (sp.gathered("router_bias")[0] if "router_bias" in sp
+              else [None] * len(xs))
+    experts = list(zip(sp.local("wg"), sp.local("wu"), sp.local("wd")))
+    T_loc = xs[0].shape[0]
+    if runtime_flags.probe_stacks() is not None:
+        token_chunks = 1  # cost probe: all tokens through one dispatch
+    if not (token_chunks > 1 and T_loc % token_chunks == 0):
+        token_chunks = 1
+    T_blk = T_loc // token_chunks
+    ys, auxs = [], []
+    for c in range(token_chunks):
+        o, a = _local_moe(cfg, [x[c * T_blk:(c + 1) * T_blk] for x in xs], routers, biases,
+                          experts, mesh=mesh, capacity=capacity(cfg, T_blk))
+        ys.append(o)
+        auxs.append(a)
+    ys = [torch.cat(parts) for parts in zip(*ys)]
+    auxs = [torch.stack(parts).mean() for parts in zip(*auxs)]
+    return ys, auxs
+
+
 def moe_layer(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
               mesh: Optional[ShardMesh] = None,
               token_chunks: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,44 +158,50 @@ def moe_layer(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
     ``token_chunks`` chunks when B * S divides by ``token_chunks * n_data``,
     else in one (one always while ``runtime_flags`` probes stacks).
 
-    With a ``mesh`` each chunk's tokens split in ``n_data`` contiguous
-    blocks, one a data shard (the reference's ``P(data, None)``), through
-    :func:`_local_moe`; one all-gather over data returns every token's
-    output to each rank, on ``x``'s device, because the port keeps the
-    layers around the MoE whole on every rank (where the reference's
-    GSPMD keeps y sharded).  Every rank of a process-group mesh calls this
-    with the same ``x``."""
+    With a ``mesh`` (``p`` whole, sharded on entry by :func:`moe_template`,
+    or a :class:`ShardedTree`): the reference's expert-parallel body,
+    :func:`_local_moe`, on each data shard's tokens (:func:`_moe_mesh`),
+    the shared experts tensor parallel over model.  ``x`` whole: its B * S
+    tokens split in ``n_data`` contiguous blocks (the reference's ``P(data,
+    None)``) and ``y`` all-gathered back over data, whole, on ``x``'s device;
+    every rank of a process-group mesh passes the same ``x``.  ``x`` a list
+    of one (B / n_data, S, d) block a local rank (the LM's layout): ``y``
+    stays sharded over data, one block a local rank, as the reference's
+    GSPMD keeps it, and so does the aux loss (pmean'd over data)."""
     mo = cfg.moe
-    B, S, d = x.shape
     n_data = 1 if mesh is None else mesh.n_shards
     if mo.n_routed % n_data:
         raise ValueError(f"{mo.n_routed} experts do not split over {n_data} "
                          "data shards")
-    if mesh is None:
-        def body(x_blk):
-            return moe_ops.moe_block(
-                x_blk, p["router"].to(x_blk.dtype), p["wg"], p["wu"], p["wd"],
-                top_k=mo.top_k, capacity=capacity(cfg, x_blk.shape[0]),
-                norm_topk=mo.norm_topk, router_bias=p.get("router_bias"))
-    else:
-        experts = expert_shards(p, mesh)
+    if mesh is not None:
+        sp = shard_params(p, moe_template(cfg), mesh)
+        if isinstance(x, torch.Tensor):
+            B, S, d = x.shape
+            flat = shard_hint(x.reshape(B * S, d), mesh, DP, None)
+            ys, aux = _moe_mesh(cfg, sp, flat, mesh=mesh, token_chunks=token_chunks)
+            if mo.n_shared:
+                ys = [y + sh for y, sh in zip(ys, _shared_mesh(sp, flat, mesh))]
+            return whole_rows(ys, mesh, x.device).reshape(B, S, d), aux[0].to(x.device)
+        shapes = [t.shape for t in x]
+        ys, aux = _moe_mesh(cfg, sp, [t.reshape(-1, t.shape[-1]) for t in x], mesh=mesh,
+                            token_chunks=token_chunks)
+        ys = [y.reshape(sh) for y, sh in zip(ys, shapes)]
+        if mo.n_shared:
+            ys = [y + sh for y, sh in zip(ys, _shared_mesh(sp, x, mesh))]
+        return ys, aux
 
-        def body(x_blk):
-            T_loc = x_blk.shape[0] // n_data
-            xs = []
-            for r in mesh.local_ranks:
-                i = mesh.axis_index(r, "data")
-                xs.append(x_blk[i * T_loc:(i + 1) * T_loc].to(mesh.rank_device(r)))
-            outs, aux = _local_moe(cfg, xs, p["router"], p.get("router_bias"),
-                                   experts, mesh=mesh,
-                                   capacity=capacity(cfg, T_loc))
-            y = mesh.all_gather_axis(outs, "data", dim=0)[0]
-            return y.to(x_blk.device), aux[0].to(x_blk.device)
+    B, S, d = x.shape
+
+    def body(x_blk):
+        return moe_ops.moe_block(
+            x_blk, p["router"].to(x_blk.dtype), p["wg"], p["wu"], p["wd"],
+            top_k=mo.top_k, capacity=capacity(cfg, x_blk.shape[0]),
+            norm_topk=mo.norm_topk, router_bias=p.get("router_bias"))
 
     flat = x.reshape(B * S, d)
     if runtime_flags.probe_stacks() is not None:
         token_chunks = 1  # cost probe: all tokens through one dispatch
-    if token_chunks > 1 and (B * S) % (token_chunks * n_data) == 0:
+    if token_chunks > 1 and (B * S) % token_chunks == 0:
         ys, auxs = zip(*(body(c) for c in flat.chunk(token_chunks)))
         y, aux = torch.cat(ys), torch.stack(auxs).mean()
     else:
@@ -195,6 +212,18 @@ def moe_layer(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
         h = F.silu((x @ p["shared_wg"]).float()).to(x.dtype)
         y = y + (h * (x @ p["shared_wu"])) @ p["shared_wd"]
     return y, aux
+
+
+def _swiglu_mesh(sp: ShardedTree, xs, mesh, wg: str, wu: str, wd: str):
+    """``(silu(x @ wg) * (x @ wu)) @ wd`` tensor parallel: each rank's column
+    blocks of ``wg`` / ``wu``, its row block of ``wd``, a psum over model."""
+    (gs, g_spec), (us, _), (ds, d_spec) = (sp.gathered(k) for k in (wg, wu, wd))
+    hs = [F.silu((x @ g).float()).to(x.dtype) * (x @ u) for x, g, u in zip(xs, gs, us)]
+    return row_parallel(mesh, hs, ds, d_spec, full=not model_sharded(g_spec[-1]))
+
+
+def _shared_mesh(sp: ShardedTree, xs, mesh):
+    return _swiglu_mesh(sp, xs, mesh, "shared_wg", "shared_wu", "shared_wd")
 
 
 def count_dropped(cfg: ArchConfig, p: Dict, x: torch.Tensor, *, n_data: int = 1,
@@ -218,29 +247,63 @@ def count_dropped(cfg: ArchConfig, p: Dict, x: torch.Tensor, *, n_data: int = 1,
     return dropped
 
 
+_DENSE_SPECS = {"wg": (None, "model"), "wu": (None, "model"), "wd": ("model", None)}
+_GELU_SPECS = {"w1": (None, "model"), "b1": ("model",), "w2": ("model", None), "b2": (None,)}
+
+
 def dense_ffn_template(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {
-        "wg": leaf((d, f), (None, "model")),
-        "wu": leaf((d, f), (None, "model")),
-        "wd": leaf((f, d), ("model", None)),
-    }
+    return {k: leaf(shape, _DENSE_SPECS[k])
+            for k, shape in (("wg", (d, f)), ("wu", (d, f)), ("wd", (f, d)))}
 
 
-def dense_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn_mesh(fn, template: Dict, p, x, mesh):
+    """An FFN's mesh form: ``p`` whole (sharded on entry by ``template``) or
+    a :class:`ShardedTree`, ``x`` whole (split over data, the output joined
+    back) or one block a local rank (the output likewise)."""
+    sp = shard_params(p, template, mesh)
+    ys = fn(sp, shard_hint(x, mesh, DP, None, None), mesh)
+    return whole_rows(ys, mesh, x.device) if isinstance(x, torch.Tensor) else ys
+
+
+def _template_of(p: Dict, specs: Dict) -> Dict:
+    return {k: leaf(t.shape, specs[k]) for k, t in p.items()}
+
+
+def dense_ffn(p: Dict, x: torch.Tensor, *, mesh: Optional[ShardMesh] = None) -> torch.Tensor:
+    """SwiGLU; with ``mesh`` tensor parallel (column blocks of ``wg`` /
+    ``wu``, the row block of ``wd``, a psum over model; ``p`` and ``x`` as
+    :func:`_ffn_mesh` takes them)."""
+    if mesh is not None:
+        tmpl = p.template if isinstance(p, ShardedTree) else _template_of(p, _DENSE_SPECS)
+        return _ffn_mesh(lambda sp, xs, m: _swiglu_mesh(sp, xs, m, "wg", "wu", "wd"),
+                         tmpl, p, x, mesh)
     h = F.silu((x @ p["wg"]).float()).to(x.dtype)
     return (h * (x @ p["wu"])) @ p["wd"]
 
 
 def gelu_ffn_template(cfg: ArchConfig) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w1": leaf((d, f), (None, "model")),
-            "b1": leaf((f,), ("model",), init="zeros"),
-            "w2": leaf((f, d), ("model", None)),
-            "b2": leaf((d,), (None,), init="zeros")}
+    return {"w1": leaf((d, f), _GELU_SPECS["w1"]),
+            "b1": leaf((f,), _GELU_SPECS["b1"], init="zeros"),
+            "w2": leaf((f, d), _GELU_SPECS["w2"]),
+            "b2": leaf((d,), _GELU_SPECS["b2"], init="zeros")}
 
 
-def gelu_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def _gelu_mesh(sp: ShardedTree, xs, mesh):
+    (w1s, s1), (b1s, _), (w2s, s2), (b2s, _) = (sp.gathered(k) for k in ("w1", "b1", "w2", "b2"))
+    hs = [F.gelu((x @ w + b).float(), approximate="tanh").to(x.dtype)
+          for x, w, b in zip(xs, w1s, b1s)]
+    ys = row_parallel(mesh, hs, w2s, s2, full=not model_sharded(s1[-1]))
+    return [y + b for y, b in zip(ys, b2s)]      # b2 once, after the psum
+
+
+def gelu_ffn(p: Dict, x: torch.Tensor, *, mesh: Optional[ShardMesh] = None) -> torch.Tensor:
+    """The whisper MLP; ``mesh`` as in :func:`dense_ffn` (``b1`` in column
+    blocks, ``b2`` added once after the psum)."""
+    if mesh is not None:
+        tmpl = p.template if isinstance(p, ShardedTree) else _template_of(p, _GELU_SPECS)
+        return _ffn_mesh(_gelu_mesh, tmpl, p, x, mesh)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu((x @ p["w1"] + p["b1"]).float(), approximate="tanh").to(x.dtype)
     return h @ p["w2"] + p["b2"]

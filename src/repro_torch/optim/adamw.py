@@ -12,9 +12,19 @@ order.  It runs leaf by leaf and **in place**: each parameter and its
 moments are overwritten, a large leaf in slices of whole rows of its last
 axis (so the per-row int8 scales are unchanged), so the only transient is
 one slice's float32 copy.  The reference returns new trees and donates the
-old ones; here the caller's tensors are the new state.  The reference's
-ZeRO-1 moment specs (``adamw_state_template``) and ``update_shardings``
-have nothing to shard on one device and wait for a multi-card slice.
+old ones; here the caller's tensors are the new state.
+
+On a :class:`~repro_torch.core.exchange.ShardMesh` the parameters and
+moments are :class:`~repro_torch.models.common.ShardedTree` s: the moments
+laid out by :func:`adamw_state_template` (under
+``runtime_flags.OPT["zero1_opt_state"]`` each also split over data on its
+largest unsharded dimension, ZeRO-1), the gradients in the moments'
+layout and reduced (``launch.steps.make_train_step`` psum-scatters them
+over data into it).  Each rank updates its block of every parameter, in
+the same row slices, and the blocks split over data are all-gathered into
+the whole parameter; the global norm is the psum over the mesh of each
+rank's squares of the blocks it alone holds.  8-bit moments are not
+sharded yet (their per-row scales would span ranks).
 """
 from __future__ import annotations
 
@@ -23,7 +33,9 @@ from typing import Any, Iterator, NamedTuple
 
 import torch
 
-from ..models.common import tree_items, tree_map
+from .. import runtime_flags
+from ..models.common import (DP, ParamLeaf, ShardedTree, spec_axes, shard_params, shard_zeros,
+                             tree_items, tree_map)
 
 #: a larger leaf is updated in slices of at most this many elements
 SLICE_ELEMS = 1 << 26
@@ -48,8 +60,61 @@ def _dq8(q, scale):
     return q.to(torch.float32) * scale
 
 
+def adamw_state_template(param_tree, state_bits: int = 32):
+    """Template tree (:class:`ParamLeaf`) for m / v (+ scales) mirroring the
+    parameters' specs, as ``repro.optim.adamw.adamw_state_template``: under
+    ``runtime_flags.OPT["zero1_opt_state"]`` each moment also splits its
+    largest unsharded dimension over the data axes (ZeRO-1)."""
+    zero1 = runtime_flags.OPT["zero1_opt_state"]
+
+    def _zero1_spec(l: ParamLeaf):
+        if not zero1 or any(s == DP for s in l.spec):
+            return l.spec  # already data-sharded (FSDP params)
+        cand = [i for i, s in enumerate(l.spec) if s is None and l.shape[i] > 1]
+        if not cand:
+            return l.spec
+        i = max(cand, key=lambda j: l.shape[j])
+        return l.spec[:i] + (DP,) + l.spec[i + 1:]
+
+    def moment(dt):
+        return lambda l: ParamLeaf(l.shape, _zero1_spec(l), "zeros", None, dt)
+
+    def scale(l: ParamLeaf):
+        return ParamLeaf(l.shape[:-1] + (1,), l.spec[:-1] + (None,), "zeros", None, "float32")
+
+    m = tree_map(moment("int8" if state_bits == 8 else "float32"), param_tree)
+    v = tree_map(moment("bfloat16" if state_bits == 8 else "float32"), param_tree)
+    ms = tree_map(scale, param_tree) if state_bits == 8 else None
+    return {"step": ParamLeaf((), (), "zeros", None, "int32"),
+            "m": m, "v": v, "m_scale": ms, "v_scale": None}
+
+
+def shard_state(state: "AdamWState", params: ShardedTree) -> "AdamWState":
+    """``state`` with whole moments laid out for ``params``' mesh by
+    :func:`adamw_state_template` (read now); sharded moments as they are."""
+    if isinstance(state.m, ShardedTree):
+        return state
+    if state.m_scale is not None:
+        raise NotImplementedError("8-bit AdamW moments are not sharded over a mesh yet")
+    t = adamw_state_template(params.template)
+    return AdamWState(step=state.step.to(params.mesh.rank_device(params.mesh.local_ranks[0])),
+                      m=shard_params(state.m, t["m"], params.mesh),
+                      v=shard_params(state.v, t["v"], params.mesh),
+                      m_scale=None, v_scale=None)
+
+
 def adamw_init(params, state_bits: int = 32) -> AdamWState:
-    """Zero moments beside each parameter, on its device."""
+    """Zero moments beside each parameter, on its device; for a
+    :class:`ShardedTree`, each rank's blocks of moments laid out by
+    :func:`adamw_state_template`."""
+    if isinstance(params, ShardedTree):
+        if state_bits != 32:
+            raise NotImplementedError("8-bit AdamW moments are not sharded over a mesh yet")
+        t = adamw_state_template(params.template)
+        dev = params.mesh.rank_device(params.mesh.local_ranks[0])
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                          m=shard_zeros(t["m"], params.mesh), v=shard_zeros(t["v"], params.mesh),
+                          m_scale=None, v_scale=None)
     def zeros(dt, shape=None):
         return lambda p: torch.zeros(p.shape if shape is None else shape(p),
                                      dtype=dt, device=p.device)
@@ -90,7 +155,14 @@ def adamw_update_impl(params, state: AdamWState, grads, lr, *,
                       state_bits: int = 32):
     """One AdamW step in place.  Returns (params, new state, grad norm):
     ``params`` and the state's moment trees are the caller's tensors,
-    overwritten; the new state has ``step`` + 1."""
+    overwritten; the new state has ``step`` + 1.  ``params`` a
+    :class:`ShardedTree`: the mesh form of the module docstring, ``grads``
+    a :class:`ShardedTree` in the moments' layout."""
+    if isinstance(params, ShardedTree):
+        if state_bits != 32:
+            raise NotImplementedError("8-bit AdamW moments are not sharded over a mesh yet")
+        return _update_sharded(params, state, grads, lr, b1=b1, b2=b2, eps=eps,
+                               weight_decay=weight_decay, clip_norm=clip_norm)
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
@@ -130,6 +202,88 @@ def adamw_update_impl(params, state: AdamWState, grads, lr, *,
                 upd(*args)
     return params, AdamWState(step=step, m=state.m, v=state.v, m_scale=state.m_scale,
                               v_scale=None), gnorm
+
+
+def _first_holder(mesh, r: int, spec) -> bool:
+    """Whether rank ``r`` is the first, on every axis ``spec`` leaves
+    replicated, to hold its block."""
+    held = {a for e in spec for a in spec_axes(e)}
+    return all(mesh.axis_index(r, a) == 0 for a in ("data", "model") if a not in held)
+
+
+def zero1_dim(p_spec, m_spec):
+    """The dimension a moment splits over data where its parameter does not
+    (ZeRO-1), or None."""
+    dims = [d for d, (pe, me) in enumerate(zip(p_spec, m_spec))
+            if "data" in spec_axes(me) and "data" not in spec_axes(pe)]
+    return dims[0] if dims else None
+
+
+def _update_sharded(params: ShardedTree, state: AdamWState, grads: ShardedTree, lr, *,
+                    b1, b2, eps, weight_decay, clip_norm):
+    mesh = params.mesh
+    p_specs = [sp for _, sp in tree_items(params.specs)]
+    m_specs = [sp for _, sp in tree_items(state.m.specs)]
+    g_specs = [sp for _, sp in tree_items(grads.specs)]
+    if g_specs != m_specs:
+        raise ValueError("the gradients are not laid out as the moments")
+
+    def leaves(tree):
+        return [t for _, t in tree_items(tree)]
+
+    ps = [leaves(b) for b in params.blocks]
+    gs = [leaves(b) for b in grads.blocks]
+    ms = [leaves(b) for b in state.m.blocks]
+    vs = [leaves(b) for b in state.v.blocks]
+    sq = []
+    for j, r in enumerate(mesh.local_ranks):
+        dev = mesh.rank_device(r)
+        tot = torch.zeros((), dtype=torch.float32, device=dev)
+        for g, spec in zip(gs[j], g_specs):
+            if _first_holder(mesh, r, spec):
+                for part in _slices(g.contiguous(), _row_step(g)):
+                    tot = tot + torch.sum(torch.square(part.float()))
+        sq.append(tot)
+    for axis in ("model", "data"):
+        sq = mesh.psum(sq, axis)
+    gnorms = [torch.sqrt(t) for t in sq]
+    step = state.step + 1
+    with torch.no_grad():
+        for li, (p_spec, m_spec) in enumerate(zip(p_specs, m_specs)):
+            dim = zero1_dim(p_spec, m_spec)
+            works = []
+            for j, r in enumerate(mesh.local_ranks):
+                p, g, m, v = ps[j][li], gs[j][li], ms[j][li], vs[j][li]
+                if dim is not None:
+                    n = m.shape[dim]
+                    p = p.narrow(dim, mesh.axis_index(r, "data") * n, n)
+                work = p if p.is_contiguous() else p.contiguous()
+                gnorm = gnorms[j]
+                scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                stp = step.to(gnorm.device)
+                bc1, bc2 = 1 - b1 ** stp.float(), 1 - b2 ** stp.float()
+                lr_ = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
+                rows = _row_step(work)
+                for pw, gw, mw, vw in zip(*[_slices(t, rows) for t in
+                                            (work, g.contiguous(), m, v)]):
+                    gw = gw.float() * scale
+                    mf = b1 * mw + (1 - b1) * gw
+                    vf = b2 * vw + (1 - b2) * gw * gw
+                    u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps) + weight_decay * pw.float()
+                    pw.copy_(pw.float() - lr_ * u)
+                    mw.copy_(mf)
+                    vw.copy_(vf)
+                works.append(work)
+            if dim is not None:
+                works = mesh.all_gather_axis(works, "data", dim)
+                for j in range(len(works)):
+                    ps[j][li].copy_(works[j])
+            else:
+                for j, w in enumerate(works):
+                    if w.data_ptr() != ps[j][li].data_ptr():
+                        ps[j][li].copy_(w)
+    return params, AdamWState(step=step, m=state.m, v=state.v, m_scale=None,
+                              v_scale=None), gnorms[0]
 
 
 #: the update (no jit on this side; ``adamw_update_impl`` is the same function)

@@ -381,8 +381,9 @@ def test_ranks_load_neither_jax_nor_repro(runs, world):
 
 def test_group_mesh_layout_and_refusals(tmp_path):
     """A one-rank gloo group: the mesh's layout, the one-process mesh's
-    answers for each collective, and the refusals (a model axis that does
-    not divide the group, NCCL on the CPU is not asked here, a gradient)."""
+    answers for each collective and its gradient, and the refusals (a model
+    axis that does not divide the group, NCCL on the CPU is not asked here,
+    a gradient through the shards all_gather)."""
     dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "s"), 1),
                             rank=0, world_size=1, timeout=datetime.timedelta(seconds=30))
     try:
@@ -407,8 +408,22 @@ def test_group_mesh_layout_and_refusals(tmp_path):
             ShardMesh.from_process_group(2, device="cpu")
         with pytest.raises(ValueError, match="unknown mesh axis"):
             mesh.psum([x], "pod")
+        # autograd passes through the axis collectives (each backward is its
+        # transposed collective, counted) and refuses the shards all_gather
+        before = mesh.collectives
+        for call in (lambda m, t: m.psum([t], "model"),
+                     lambda m, t: m.all_gather_axis([t], "data", 1),
+                     lambda m, t: m.psum_scatter([t], "model", 2),
+                     lambda m, t: m.all_to_all([t], "data")):
+            grads = []
+            for m in (mesh, one):
+                t = x.clone().requires_grad_()
+                (call(m, t)[0] * x).sum().backward()
+                grads.append(t.grad)
+            assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], x)
+        assert mesh.collectives - before == 8
         with pytest.raises(NotImplementedError, match="not differentiable"):
-            mesh.psum([x.clone().requires_grad_()], "model")
+            mesh.all_gather([x.reshape(-1).clone().requires_grad_()])
         with pytest.raises(ValueError, match="not driven by this rank"):
             mesh.shard_device(1)
         if not torch.cuda.is_available():
@@ -490,10 +505,10 @@ def test_sharded_moe_layer_matches_reference(runs, shape, flag):
         assert _rel_err(ry, want_y) < MOE_TOL and _rel_err(raux, want_aux) < MOE_TOL
         assert _rel_err(ry, y) < MOE_TOL
     # collectives of the body: all_to_all out and back when n_data > 1,
-    # the model reduction, the rs path's gather, the aux pmean, the token
-    # gather
+    # the model reduction, the rs path's gather, the aux pmean, the shared
+    # experts' psum over model, the token gather
     rs = flag == "moe_rs_combine" and n_model > 1
-    assert mesh.collectives == 2 * (n_data > 1) + 1 + rs + (n_data > 1) + 1
+    assert mesh.collectives == 2 * (n_data > 1) + 1 + rs + (n_data > 1) + 1 + 1
 
 
 def test_moe_meshes_drop_tokens_and_differ(runs):
