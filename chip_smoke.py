@@ -176,19 +176,37 @@ Phases, each printing one JSON line or more:
    meshed calls launch is held against its plain version (``LM_KERNEL_TOL``)
    on the inputs of the last call of each shape and option they made:
    flash at each rank's local heads or batch block, the grouped FFN at
-   15c's buckets.
+   15c's buckets;
+16. the recurrent and encoder-decoder families on a mesh of logical ranks
+   (``[cuda:0] * 4``, no scaling measured): 16a whisper-large-v3, 16b
+   xlstm-1.3b, 16c zamba2-2.7b (bf16, seed-0 weights, full width and
+   depth) at (1, 4) with batch 1 and (2, 2) with batch 2, phase 7's prefill
+   lengths (whisper 448 with 1,500 frames, xlstm 1,024, zamba2 4,096): the
+   forward against ``mesh=None`` at phase 7's bf16 rule, collectives against
+   :func:`family_collectives`, rank 0's bytes and peak memory, decode of
+   ``TP_CHECK_LEN`` steps on the sharded cache (whisper's cross cache filled
+   from the meshed encoder) against the meshed forward, ``serve_requests``
+   at phase 7's load at (1, 4); xlstm / zamba2 also cut to one super-block
+   against 3 x ``BF16_REF_ERR``; each family's depth cut (one super-block,
+   whisper 2 + 2 layers) trained two fp32 steps at (2, 2) against
+   ``mesh=None`` at ``TRAIN_PARITY_TOL`` (zamba2 also under ZeRO-1 + FSDP);
+   16d deepseek-v2 x2 trained two fp32 steps with 8-bit AdamW moments at (2,
+   2) against ``mesh=None`` 8-bit (:func:`moments_agreement`).  The kernels
+   16a-d launch are held against their plain versions as 15's are.
 
 Launch counters are set to 0 before phase 4 and read after phase 5, set to
 0 again before phase 7 and read after it, and likewise around each of
 phases 8, 9 and 10, around phase 12's two full-size training runs and
 around each of phase 13's gin steps and phase 14's two parts; phases 11,
-14 and 15a-d add up the launches of their sharded or meshed calls alone,
-leaving out the baselines and kernel checks they run beside them.  Every kernel must have launched on its path (in phases 8 and 11 all
+14, 15a-d and 16a-d add up the launches of their sharded or meshed calls
+alone, leaving out the baselines and kernel checks they run beside them.  Every kernel must have launched on its path (in phases 8 and 11 all
 four tile kernels; in phase 7 flash on every family but ssm; in phase 12
 flash for both models, the grouped FFN for deepseek; in phase 13 the COO
 SpMM on COO tiles and the CSR SpMM on CSR tiles; in phase 14 the CSR
 SpMM and softmax on the process group, flash and the grouped FFN on the
-meshes; in phase 15 flash in each of 15a-d, the grouped FFN in 15c).  Then one ``{"kernels": [...]}`` line (all six,
+meshes; in phase 15 flash in each of 15a-d, the grouped FFN in 15c; in
+phase 16 flash in 16a, 16c and 16d, the grouped FFN in 16d).  Then one
+``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
@@ -2675,14 +2693,77 @@ def dense_collectives(cfg, mesh) -> int:
     return cfg.n_layers * per_layer + 2
 
 
-def _mesh_decode_err(cfg, sp, mesh, dev, full, tokens):
+def family_collectives(cfg, mesh) -> int:
+    """The collectives of one forward of the audio, ssm or hybrid family,
+    reckoned from the widths of its layers over a model axis of M (a
+    gather runs only where M > 1 splits a width a rank reads whole, a psum
+    over model wherever a row-parallel weight's rows are laid out over it):
+
+    * attention (whisper's self and cross, zamba2's shared block): an
+      all-gather for each of q / k / v whose heads do not divide M but
+      whose columns do, the psum after ``wo`` where its rows divide M; an
+      MLP: the psum after its
+      down projection where its width divides M;
+    * mLSTM: gathers of the up projection (2 di), ``conv_w``, ``conv_b``,
+      ``wq`` / ``wk`` / ``wv`` and ``norm_w`` (when the heads do not divide M),
+      ``w_if`` and ``b_if`` (their [i | f] columns), the norm's psum (heads
+      split), the psum after ``w_down``;
+    * sLSTM: gathers of ``w_x`` and ``b`` (heads not dividing M), ``r_h``,
+      the normed output (heads split), the norm's psum (heads split), the
+      GeGLU's psum where its width divides M;
+    * Mamba2: gathers of ``w_in``'s projection, ``conv_w``, ``conv_b`` and
+      ``norm_w`` (heads not dividing M), the norm's psum (heads split), the
+      psum after ``w_out``;
+    * the vocabulary-parallel lookup's psum and the logits' all-gather,
+      where the vocabulary divides M."""
+    M = mesh.model_axis
+
+    def split(n):                    # a gather of a width n that M splits
+        return int(M > 1 and n % M == 0)
+
+    def attention():
+        return int(cfg.n_heads * cfg.hdim % M == 0) + sum(
+            1 for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)
+            if n % M and (n * cfg.hdim) % M == 0)
+
+    vocab = 2 * int(cfg.vocab % M == 0)
+    if cfg.family == "audio":
+        ffn = int(cfg.d_ff % M == 0)
+        return (cfg.n_encoder_layers * (attention() + ffn)
+                + cfg.n_layers * (2 * attention() + ffn) + vocab)
+    if cfg.family == "ssm":
+        d, nh, k = cfg.d_model, cfg.n_heads, cfg.xlstm.slstm_every
+        di = int(d * cfg.xlstm.proj_factor)
+        mh = int(M > 1 and nh % M == 0)
+        mlstm = (split(2 * di) + 2 * split(di) + 4 * (1 - mh) * split(di)
+                 + 2 * split(2 * nh) + mh + int(di % M == 0))
+        dff = int(d * 4 / 3)
+        slstm = (2 * (1 - mh) * split(4 * d) + split(4 * d // nh) + 2 * mh
+                 + int(dff % M == 0))
+        return cfg.n_layers // k * ((k - 1) * mlstm + slstm) + vocab
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    nh = di // s.head_dim
+    mh = int(M > 1 and nh % M == 0)
+    conv_ch = di + 2 * s.n_groups * s.d_state
+    mamba = (split(2 * di + 2 * s.n_groups * s.d_state + nh) + 2 * split(conv_ch)
+             + (1 - mh) * split(di) + mh + int(di % M == 0))
+    shared = attention() + int(cfg.d_ff % M == 0)
+    return (cfg.n_layers // cfg.shared_attn_every
+            * (cfg.shared_attn_every * mamba + shared) + vocab)
+
+
+def _mesh_decode_err(cfg, sp, mesh, dev, full, tokens, fill=None):
     """Teacher-forced decode through ``make_decode_step(cfg, mesh)`` on a
-    sharded cache against ``full``, the mesh forward's logits of the same
-    tokens; the worst step's scaled error."""
+    sharded cache (``fill(cache)`` first, where given) against ``full``,
+    the mesh forward's logits of the same tokens; the worst step's scaled
+    error."""
     import torch
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import lm
     cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1], mesh=mesh)
+    if fill is not None:
+        fill(cache)
     step = make_decode_step(cfg, mesh)
     err = 0.0
     for pos in range(tokens.shape[1]):
@@ -3197,6 +3278,311 @@ def tp_group_phase(cfg, dev, *, batch=(2, 256)):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the recurrent and encoder-decoder families on a mesh
+# ---------------------------------------------------------------------------
+
+FAMILY_MESHES = (((1, 4), 1), ((2, 2), 2))     # (mesh, prefill batch)
+FAMILY_PREFILL = {"audio": WHISPER_DECODER_LEN, "ssm": XLSTM_PREFILL_LEN,
+                  "hybrid": PREFILL_LEN}
+FAMILY_TRAIN = (2, 256)                          # the fp32 cuts' (batch, seq)
+# the 8-bit step: mesh, tokens a row (fp32 deepseek-v2 x2 on 4 logical
+# ranks holds ~70 GB before its activations)
+Q8_SHAPE, Q8_SEQ = (2, 2), 128
+
+
+def fill_cross_sharded(cfg, params, sp, cache, frames):
+    """:func:`fill_cross_cache` for a sharded cache: the encoder on the mesh
+    (``sp``, the sharded ``params``), the whole cross K/V projected from its
+    output with ``params``' weights, then each rank's block of it."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.common import shard_params
+    sub = cache.sub("cross")
+    enc = lm.encode(cfg, sp, frames, mesh=cache.mesh)
+    B, T, _ = enc.shape
+    xa = params["layers"]["xattn"]
+    whole = {}
+    for name in ("k", "v"):
+        t = torch.einsum("btd,lde->lbte", enc, xa["w" + name])
+        if cfg.qkv_bias:
+            t = t + xa["b" + name][:, None, None]
+        whole[name] = t.reshape(cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hdim)
+    blocks = shard_params(whole, sub.template, cache.mesh)
+    for dst, src in zip(sub.blocks, blocks.blocks):
+        for k in ("k", "v"):
+            dst[k].copy_(src[k])
+    del enc, whole, blocks
+
+
+def family_cut(cfg):
+    """The depth-cut config of phase 16's training checks: one super-block
+    (``one_super_block``), whisper 2 encoder + 2 decoder layers."""
+    import dataclasses
+    if cfg.family == "audio":
+        return dataclasses.replace(cfg, n_layers=2, n_encoder_layers=2)
+    return one_super_block(cfg)
+
+
+def tp_family_phase(cfg, dev, calls, *, prefill_len, meshes=FAMILY_MESHES,
+                    train=FAMILY_TRAIN):
+    """16a-c: ``cfg`` (whisper-large-v3, xlstm-1.3b or zamba2-2.7b, bf16,
+    seed-0 weights, every layer) over ``meshes`` of logical ranks: a B x
+    ``prefill_len`` forward (whisper with its frames) against ``mesh=None``
+    at phase 7's bf16 rule (``_bf16_limit``), its collectives against
+    :func:`family_collectives`, rank 0's parameter bytes, peak memory;
+    teacher-forced decode of ``TP_CHECK_LEN`` steps on the sharded cache
+    (whisper's cross cache filled from the encoder) against the mesh
+    forward; at the first mesh ``serve_requests`` at phase 7's load (decode
+    step p10 / p50 / p90).  The recurrent families also at one super-block
+    (``one_super_block``), held as phase 7b holds it: within
+    ``BF16_MODEL_MULTIPLE`` x the reference's own bf16 error + the fp32
+    limit.  Then two fp32 train steps of the depth cut (:func:`family_cut`)
+    at (2, 2) against ``mesh=None`` at ``TRAIN_PARITY_TOL`` (phase 15d's
+    rule), plain, and for zamba2 also under ZeRO-1 + FSDP with 2
+    microbatches (of the batch twice over)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, shard_params
+
+    cell = {"audio": "16a", "ssm": "16b", "hybrid": "16c"}[cfg.family]
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         lm.model_template(cfg), device=dev)
+    B_max = max(b for _, b in meshes)
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (B_max, prefill_len)), device=dev)
+    extra = family_inputs(cfg, B_max, torch.Generator(device=dev).manual_seed(9), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(4, TP_SERVE["max_prompt"] + 1))
+               for _ in range(TP_SERVE["requests"])]
+    for shape, B in meshes:
+        tag = f"{cell} {shape[0]}x{shape[1]}"
+        b = {"tokens": tokens[:B], **{k: v[:B] for k, v in extra.items()}}
+        with torch.no_grad():
+            ref = lm.forward(cfg, params, b)
+        limit, e_model = _bf16_limit(cfg, params, b, ref)
+        mesh = ShardMesh([dev] * (shape[0] * shape[1]), *shape)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sp = shard_params(params, lm.model_template(cfg), mesh)
+        mesh.collectives = 0
+        with torch.no_grad():
+            logits, secs = calls.run(tag, lambda: _timed(
+                lambda: lm.forward(cfg, sp, b, mesh=mesh), dev, 1))
+        per_forward = mesh.collectives
+        err = scaled_err(logits.float(), ref.float())
+        finite = bool(torch.isfinite(logits).all())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del logits, ref
+        short = {"tokens": b["tokens"][:, :TP_CHECK_LEN], **{k: v for k, v in b.items()
+                                                             if k != "tokens"}}
+        with torch.no_grad():
+            full = calls.run(tag, lambda: lm.forward(cfg, sp, short, mesh=mesh))
+        fill = (None if cfg.family != "audio" else
+                lambda cache: fill_cross_sharded(cfg, params, sp, cache, short["frames"]))
+        dec = calls.run(tag, lambda: _mesh_decode_err(cfg, sp, mesh, dev, full,
+                                                      short["tokens"], fill))
+        row = dict(phase="tp_family", model=cfg.name, family=cfg.family,
+                   layers=cfg.n_layers, dtype="bfloat16", mesh=list(shape), batch=B,
+                   tokens=prefill_len, **_rank_bytes(sp), collectives_per_forward=per_forward,
+                   collectives_reckoned=family_collectives(cfg, mesh), vs_no_mesh_err=err,
+                   limit=limit, bf16_vs_fp32_forward_err=e_model, decode_vs_forward_err=dec,
+                   forward_s=secs[0], peak_mem_gb=peak,
+                   note="logical ranks of one card: measures no scaling")
+        if shape == meshes[0][0]:
+            res = calls.run(tag, lambda: serve_requests(
+                cfg, sp, prompts, batch=TP_SERVE["batch"], max_prompt=TP_SERVE["max_prompt"],
+                max_new=TP_SERVE["max_new"], device=dev, mesh=mesh))
+            toks = np.concatenate([o.ravel() for o in res["tokens"]])
+            row.update(serve=TP_SERVE, serve_tokens_per_s=res["tokens_per_s"],
+                       **_spread(res["step_s"]))
+            require(toks.size == TP_SERVE["requests"] * TP_SERVE["max_new"]
+                    and toks.min() >= 0 and toks.max() < cfg.vocab,
+                    f"tp {cfg.name} {shape}: bad served tokens")
+        emit(row)
+        require(finite, f"tp {cfg.name} {shape}: non-finite mesh forward")
+        require(per_forward == row["collectives_reckoned"],
+                f"tp {cfg.name} {shape}: {per_forward} collectives a forward, reckoned "
+                f"{row['collectives_reckoned']}")
+        require(err <= limit and dec <= limit,
+                f"tp {cfg.name} {shape}: vs mesh=None {err}, decode {dec}, limit {limit}")
+        del sp, full
+        torch.cuda.empty_cache()
+    del params, extra
+    torch.cuda.empty_cache()
+    if cfg.family in ("ssm", "hybrid"):
+        # one super-block at full width, as phase 7b: the reference's own
+        # bf16 error bounds the bf16 drift between the mesh and none
+        cut = one_super_block(cfg)
+        p = materialize(torch.Generator(device=dev).manual_seed(0), lm.model_template(cut),
+                        device=dev)
+        b = {"tokens": tokens[:, :prefill_len]}
+        tol = BF16_MODEL_MULTIPLE * BF16_REF_ERR[cfg.name] + LM_MODEL_TOL[cfg.family]
+        with torch.no_grad():
+            want = lm.forward(cut, p, b)
+            errs = {f"{s[0]}x{s[1]}": scaled_err(calls.run(f"{cell} cut", lambda: lm.forward(
+                cut, p, b, mesh=ShardMesh([dev] * (s[0] * s[1]), *s))).float(), want.float())
+                for s, _ in meshes}
+        emit(dict(phase="tp_family_super_block", model=cut.name, layers=cut.n_layers,
+                  batch=B_max, tokens=prefill_len, vs_no_mesh_err=errs, tol=tol,
+                  reference_bf16_err=BF16_REF_ERR[cfg.name]))
+        require(all(e <= tol for e in errs.values()),
+                f"tp {cfg.name} super-block vs mesh=None: {errs} over {tol}")
+        del p, want
+        torch.cuda.empty_cache()
+    cut = family_cut(cfg)
+    settings = [("plain", (), 1)]
+    if cfg.family == "hybrid":
+        settings.append(("zero1+fsdp", ("zero1_opt_state", "fsdp_params"), 2))
+    for label, flags, mb in settings:
+        rel, moment, ratio = _two_step_parity(cut, dev, (2, 2), flags, calls,
+                                              f"{cell} train {label}", batch=train[0] * mb,
+                                              seq=train[1], microbatches=mb)
+        emit(dict(phase="tp_family_training_parity", model=cut.name, layers=cut.n_layers,
+                  mesh=[2, 2], setting=label, microbatches=mb, batch=[train[0] * mb, train[1]],
+                  rel_err=rel, moment_err=moment, param_err_over_limit=ratio,
+                  tol=TRAIN_PARITY_TOL))
+        require(all(v <= TRAIN_PARITY_TOL for v in rel.values()) and moment <= TRAIN_PARITY_TOL
+                and ratio <= 1.0, f"tp {cut.name} training parity {label}: {rel} {moment} "
+                f"{ratio}")
+    torch.cuda.empty_cache()
+
+
+def _host_moments(opt):
+    """The 8-bit state's ``m``, ``m_scale`` and ``v``, each leaf whole on the
+    host ({name: {path: tensor}}); a sharded leaf is unsharded on its own, so
+    the card holds one whole leaf at a time."""
+    from repro_torch.models.common import ShardedTree, tree_items, unshard_params
+    out = {}
+    for name in ("m", "m_scale", "v"):
+        tree, leaves = getattr(opt, name), {}
+        if not isinstance(tree, ShardedTree):
+            leaves = {path: t.to("cpu", copy=True) for path, t in tree_items(tree)}
+        else:
+            per_rank = [dict(tree_items(b)) for b in tree.blocks]
+            for (path, l), (_, spec) in zip(tree_items(tree.template), tree_items(tree.specs)):
+                one = ShardedTree(tree.mesh, {"x": l}, {"x": spec},
+                                  [{"x": b[path]} for b in per_rank])
+                leaves[path] = unshard_params(one)["x"].to("cpu", copy=True)
+        out[name] = leaves
+    return out
+
+
+def moments_agreement(got, want, dev, *, carried=None, b1=0.9, b2=0.95):
+    """Two runs' 8-bit moments (:func:`_host_moments`) leaf by leaf, each
+    error over its limit (1 = at the limit): the dequantized ``m`` within
+    one int8 step of its row scale + ``TRAIN_PARITY_TOL`` of its leaf's
+    largest |m| (|q s - q' s'| <= |q - q'| s + 127 |s - s'|), the scales
+    within ``TRAIN_PARITY_TOL`` of their leaf's largest, ``v`` (bf16) within
+    one bf16 ulp + twice that (``v`` is quadratic in the gradient).  After a
+    second step (``carried``: both runs' moments after the first) a code
+    that rounded apart at the first carries b1 x that step's scale into
+    ``m``, and a bf16 ulp b2 x one into ``v``.  Returns (codes, codes that
+    differ, most steps apart, {dq, scale, v: (worst ratio, its leaf)})."""
+    import torch
+    codes = flipped = steps_apart = 0
+    worst = {k: (0.0, "") for k in ("dq", "scale", "v")}
+    for path, q in want["m"].items():
+        qn, qg = q.to(dev), got["m"][path].to(dev)
+        sn, sg = want["m_scale"][path].to(dev), got["m_scale"][path].to(dev)
+        diff = (qg.int() - qn.int()).abs()
+        codes, flipped = codes + q.numel(), flipped + int((diff > 0).sum())
+        steps_apart = max(steps_apart, int(diff.max()))
+        dn = qn.float() * sn
+        lim = torch.maximum(sg, sn) + TRAIN_PARITY_TOL * float(dn.abs().max())
+        s_lim = TRAIN_PARITY_TOL * float(sn.max())
+        vn, vg = want["v"][path].to(dev).float(), got["v"][path].to(dev).float()
+        v_lim = BF16_ULP * vn.abs() + 2 * TRAIN_PARITY_TOL * float(vn.abs().max()) + 1e-30
+        if carried is not None:
+            s1 = torch.maximum(carried[0]["m_scale"][path].to(dev),
+                               carried[1]["m_scale"][path].to(dev))
+            lim = lim + b1 * s1
+            s_lim = s_lim + b1 * s1 / 127
+            v_lim = v_lim + b2 * BF16_ULP * vn.abs()
+        ratios = {"dq": float(((qg.float() * sg - dn).abs() / lim).max()),
+                  "scale": float(((sg - sn).abs() / s_lim).max()),
+                  "v": float(((vg - vn).abs() / v_lim).max())}
+        for k, r in ratios.items():
+            if r > worst[k][0]:
+                worst[k] = (r, "/".join(path))
+        del qn, qg, sn, sg, diff, dn, lim, vn, vg, v_lim
+    return codes, flipped, steps_apart, worst
+
+
+def tp_8bit_phase(cfg, dev, calls, *, shape=Q8_SHAPE, seq=Q8_SEQ):
+    """16d: two fp32 train steps of ``cfg`` (deepseek-v2 x2) with 8-bit
+    moments (``opt_state_bits`` forced to 8) at ``shape``, against two
+    mesh-less 8-bit steps routing the same token blocks (as 15c): losses and
+    grad norms at ``TRAIN_PARITY_TOL``, and the moments after each step by
+    :func:`moments_agreement`.  The moments wait on the host."""
+    import torch
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import materialize, shard_params
+    from repro_torch.optim.adamw import adamw_init
+
+    pipe = TokenPipeline(cfg, seq_len=seq, global_batch=shape[0])
+    data = [batch_tensors(pipe.global_batch_at(i), dev) for i in range(2)]
+    bits, layer = steps.opt_state_bits, MOE.moe_layer
+
+    def run(mesh):
+        p = materialize(torch.Generator(device=dev).manual_seed(0), lm.model_template(cfg),
+                        dtype_override="float32", device=dev)
+        if mesh is not None:
+            p = shard_params(p, lm.model_template(cfg), mesh)
+        opt = adamw_init(p, 8)
+        step = steps.make_train_step(cfg, mesh, peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+        ms, states = [], []
+        for d in data:
+            p, opt, m = step(p, opt, d)
+            ms.append({k: float(v) for k, v in m.items()})
+            states.append(_host_moments(opt))
+        del p, opt
+        torch.cuda.empty_cache()
+        return states, ms
+
+    steps.opt_state_bits = lambda c: 8
+    try:
+        def routed(cfg_, p, x, mesh=None, token_chunks=4):
+            return layer(cfg_, p, x, mesh=mesh, token_chunks=token_chunks * shape[0])
+        MOE.moe_layer = routed
+        try:
+            want, mw = run(None)
+        finally:
+            MOE.moe_layer = layer
+        torch.cuda.reset_peak_memory_stats()
+        mesh = ShardMesh([dev] * (shape[0] * shape[1]), *shape)
+        got, mg = calls.run("16d", lambda: run(mesh))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        steps.opt_state_bits = bits
+    rel = {f"{k}_{i}": abs(a[k] - b[k]) / max(1e-30, abs(b[k]))
+           for i, (a, b) in enumerate(zip(mg, mw)) for k in ("loss", "grad_norm")}
+    row = dict(phase="tp_8bit_training", model=cfg.name, layers=cfg.n_layers,
+               mesh=list(shape), batch=[shape[0], seq], state_bits=8, rel_err=rel,
+               tol=TRAIN_PARITY_TOL, peak_mem_gb=peak,
+               note="logical ranks of one card: measures no scaling")
+    ok = all(v <= TRAIN_PARITY_TOL for v in rel.values())
+    for i in range(2):
+        codes, flipped, apart, worst = moments_agreement(
+            got[i], want[i], dev, carried=None if i == 0 else (got[0], want[0]))
+        row[f"step{i + 1}"] = dict(codes=codes, codes_differing=flipped, most_steps_apart=apart,
+                                   **{f"{k}_err_over_limit": w[0] for k, w in worst.items()},
+                                   worst_leaves={k: w[1] for k, w in worst.items()})
+        ok = ok and all(w[0] <= 1.0 for w in worst.values())
+    emit(row)
+    require(ok, f"tp 8-bit {cfg.name}: {row}")
+    del got, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3410,6 +3796,24 @@ def main() -> int:
         require(n["flash_attention"] > 0, f"the flash kernel was not launched in {cell}")
     require(by_cell["15c"]["grouped_ffn"] > 0, "the grouped FFN kernel was not launched in 15c")
     tp_group_phase(dataclasses.replace(lm_cfgs["dense"], n_layers=2), dev)
+
+    # 16. the recurrent and encoder-decoder families laid out by their specs
+    # over logical ranks of the card, full width and depth, then 8-bit
+    # moments on a mesh; counted and checked as phase 15's calls
+    calls = MeshCalls()
+    t0 = time.perf_counter()
+    for fam in ("audio", "ssm", "hybrid"):
+        tp_family_phase(lm_cfgs[fam], dev, calls, prefill_len=FAMILY_PREFILL[fam])
+        calls.check()
+    tp_8bit_phase(lm_cfgs["moe"], dev, calls)
+    calls.check()
+    by_cell = calls.by_cell()
+    emit(dict(phase="tp_family_launches", by_cell=by_cell, by_call=calls.launches,
+              seconds=time.perf_counter() - t0))
+    for cell in ("16a", "16c", "16d"):
+        require(by_cell.get(cell, {}).get("flash_attention", 0) > 0,
+                f"the flash kernel was not launched in {cell}")
+    require(by_cell["16d"]["grouped_ffn"] > 0, "the grouped FFN kernel was not launched in 16d")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

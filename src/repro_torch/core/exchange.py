@@ -18,7 +18,7 @@ backends, with one meaning:
   ``torch.distributed`` rank a mesh rank, the same numbering, each process
   driving only its own rank; a collective is the ``torch.distributed`` call
   over the axis's subgroup (``all_gather_into_tensor``,
-  ``all_to_all_single``, ``all_reduce``, ``reduce_scatter_tensor``).  This is
+  ``all_to_all_single``, ``all_reduce`` (sum or max), ``reduce_scatter_tensor``).  This is
   the idiom of a mesh that spans hosts (one controller process per host in
   the reference, ``launch/mesh.py``).
 
@@ -51,6 +51,7 @@ forward only under a group and raises when autograd records.
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -287,6 +288,27 @@ class ShardMesh:
         peers' tensors (one process: in axis order)."""
         self._begin(xs, axis)
         return self._sum(xs, axis)
+
+    def pmax(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
+        """``jax.lax.pmax`` over ``axis``: on each local rank the elementwise
+        max of its peers' tensors.  No gradient: it serves the optimizer's
+        per-row int8 scales, which nothing differentiates."""
+        self._begin(xs, axis)
+        if self.group is not None:
+            out = xs[0].detach().contiguous().clone()
+            self._dist(partial(dist.all_reduce, op=dist.ReduceOp.MAX), out, None, axis)
+            return [out]
+        built: Dict[Tuple, torch.Tensor] = {}
+        out = []
+        for r in self.local_ranks:
+            peers, dev = tuple(self._peers(r, axis)), self.rank_device(r)
+            if (peers, dev) not in built:
+                acc = self._of(xs, peers[0]).detach().to(dev)
+                for p in peers[1:]:
+                    acc = torch.maximum(acc, self._of(xs, p).detach().to(dev))
+                built[peers, dev] = acc
+            out.append(built[peers, dev])
+        return out
 
     def pmean(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
         """``jax.lax.pmean``: the psum over ``axis`` over its size."""

@@ -13,9 +13,9 @@ config in float32, as the reference's does; otherwise parameters and
 caches take the templates' dtype (bfloat16).  Runs on ``cuda`` unless
 ``--device`` names another device.  ``--mesh DATA,MODEL`` (with
 ``--devices`` in one process, or under ``torchrun``; see
-``launch/train.py``) serves the dense, vlm and moe families laid out by
-their specs: each batch split over data, each process decoding its data
-shards' rows, the KV cache sharded as ``lm.cache_template`` says.
+``launch/train.py``) serves any of the families laid out by their specs:
+each batch split over data, each process decoding its data shards' rows,
+the KV caches and recurrent states sharded as ``lm.cache_template`` says.
 """
 from __future__ import annotations
 

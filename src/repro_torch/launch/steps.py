@@ -136,9 +136,6 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, peak_lr: float = 3e-4,
 def _mesh_train_step(cfg: ArchConfig, mesh, *, peak_lr, total_steps, microbatches,
                      accum_dtype):
     bits = opt_state_bits(cfg)
-    if bits != 32:
-        raise NotImplementedError(f"{cfg.name}: 8-bit AdamW moments are not sharded "
-                                  "over a mesh yet")
     tmpl = maybe_fsdp(lm.model_template(cfg))
     n_local = len(mesh.local_shards)
 
@@ -162,11 +159,16 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, peak_lr, total_steps, microbatche
             for i in range(microbatches):
                 b = batch if microbatches == 1 else micro(batch, i)
                 losses = lm.shard_losses(cfg, sp, b, mesh)
-                got = torch.autograd.grad(lm.mesh_objective(losses, mesh), flat)
+                got = list(torch.autograd.grad(lm.mesh_objective(losses, mesh), flat))
                 n = len(leaves[0])
-                per_rank = [got[j * n:(j + 1) * n] for j in range(len(leaves))]
-                red = [_reduce(mesh, [g[li] for g in per_rank], p_specs[li], m_specs[li])
-                       for li in range(n)]
+                red = []
+                for li in range(n):
+                    # each leaf's raw gradients go as its reduced ones come
+                    gs = [got[j * n + li] for j in range(len(leaves))]
+                    for j in range(len(leaves)):
+                        got[j * n + li] = None
+                    red.append(_reduce(mesh, gs, p_specs[li], m_specs[li]))
+                    del gs
                 if acc is None:
                     # ranks of one process may share a reduced gradient:
                     # each accumulates into a copy of its own
@@ -178,7 +180,7 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, peak_lr, total_steps, microbatche
                             a.add_(g)
                 l = lm.mesh_loss(losses, mesh)
                 lsum = l if lsum is None else lsum + l
-                del losses, got, per_rank, red
+                del losses, got, red
         finally:
             for t, f in zip(flat, flags):
                 t.requires_grad_(f)

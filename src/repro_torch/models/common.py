@@ -299,6 +299,141 @@ def unshard_params(sp: ShardedTree) -> Dict:
     return tree_unflatten(sp.template, out)
 
 
+class LoneRank:
+    """``mesh=None`` as a body written for a mesh sees it: one rank on
+    ``device``, holding every leaf whole.  It has no collectives: nothing of
+    a :func:`lone_tree` is sharded, so a body run on one calls none."""
+
+    n_shards = model_axis = 1
+    local_ranks = local_shards = (0,)
+
+    def __init__(self, device):
+        self.device = device
+
+    def axis_size(self, axis: str) -> int:
+        return 1
+
+    def axis_index(self, r: int, axis: str) -> int:
+        return 0
+
+    def rank_device(self, r: int):
+        return self.device
+
+
+def lone_tree(tree) -> ShardedTree:
+    """Whole tensors (nested dicts) as the one block of a
+    :class:`LoneRank`, as they are (no copy), every spec unsharded; a
+    :class:`ShardedTree` is returned as it is."""
+    if isinstance(tree, ShardedTree):
+        return tree
+    tmpl = tree_map(lambda t: ParamLeaf(tuple(t.shape), (None,) * t.dim(), dtype=str(
+        t.dtype).replace("torch.", "")), tree)
+    dev = next(t for _, t in tree_items(tree)).device
+    return ShardedTree(LoneRank(dev), tmpl, tree_map(lambda l: l.spec, tmpl), [tree])
+
+
+def on_ranks(p, x, state, mesh):
+    """A block's arguments as its one body reads them: with ``mesh``, as
+    they come (``p`` and ``state`` :class:`ShardedTree` s, ``x`` one tensor
+    a local rank); without, a lone rank's (:func:`lone_tree`, ``[x]``)."""
+    if mesh is not None:
+        return p, x, state
+    return lone_tree(p), [x], None if state is None else lone_tree(state)
+
+
+def off_ranks(mesh, ys, states):
+    """The inverse of :func:`on_ranks` on a block's outputs."""
+    if mesh is not None:
+        return ys, states
+    return ys[0], None if states is None else states[0]
+
+
+def _merge_ranges(ranges: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    out: List[Tuple[int, int]] = []
+    for lo, hi in ranges:
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        elif hi > lo:
+            out.append((lo, hi))
+    return out
+
+
+def take(mesh, xs: Sequence[torch.Tensor], dim: int, sharded: bool, n: int,
+         want: Callable[[int], Sequence[Tuple[int, int]]]) -> List[torch.Tensor]:
+    """Each local rank's index ranges ``want(m)`` (m its model index) of a
+    length-``n`` dimension ``dim``, concatenated in order.  ``xs`` hold one
+    tensor a local rank: along ``dim`` its model rank's block of ``n`` when
+    ``sharded``, else all of it.  Where every model rank finds what it wants
+    in its own block, each slices it (a view); otherwise the blocks are
+    all-gathered over model once and every rank slices the whole.  A rank
+    that wants all of a whole dimension gets its tensor as it is."""
+    M = mesh.model_axis if sharded else 1
+    blk = n // M
+    wants = [_merge_ranges(want(m)) for m in range(mesh.model_axis)]
+
+    def inside(m):
+        return all(m * blk <= lo and hi <= (m + 1) * blk for lo, hi in wants[m])
+
+    if sharded and M > 1 and not all(inside(m) for m in range(M)):
+        xs, sharded = mesh.all_gather_axis(list(xs), "model", dim), False
+    out = []
+    for x, r in zip(xs, mesh.local_ranks):
+        m = mesh.axis_index(r, "model")
+        base = m * blk if sharded else 0
+        parts = [x.narrow(dim, lo - base, hi - lo) if (lo - base, hi - lo) != (0, x.shape[dim])
+                 else x for lo, hi in wants[m]]
+        out.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim))
+    return out
+
+
+def take_leaf(sp: ShardedTree, key: str, dim: int,
+              want: Callable[[int], Sequence[Tuple[int, int]]]) -> List[torch.Tensor]:
+    """:func:`take` on leaf ``key`` of ``sp`` (its FSDP dimensions gathered
+    first, :meth:`ShardedTree.gathered`)."""
+    xs, spec = sp.gathered(key)
+    n = sp.template[key].shape[dim]
+    return take(sp.mesh, xs, dim, model_sharded(spec[dim]), n, want)
+
+
+def whole(mesh, xs: Sequence[torch.Tensor], dim: int, sharded: bool) -> List[torch.Tensor]:
+    """Blocks split over model along ``dim`` (when ``sharded``) all-gathered
+    into the whole; whole ones as they are."""
+    return mesh.all_gather_axis(list(xs), "model", dim) if sharded and mesh.model_axis > 1 \
+        else list(xs)
+
+
+def whole_leaf(sp: ShardedTree, key: str) -> List[torch.Tensor]:
+    """Leaf ``key`` whole on every local rank."""
+    xs, spec = sp.gathered(key)
+    for dim, e in enumerate(spec):
+        xs = whole(sp.mesh, xs, dim, model_sharded(e))
+    return xs
+
+
+def own_range(mesh, n: int, m: int, unit: int = 1) -> Tuple[int, int]:
+    """Model rank ``m``'s share of ``n`` heads (x ``unit`` columns each):
+    its block when the heads divide the model axis, else all of them (every
+    rank computes them, as GSPMD replicates what a spec cannot split)."""
+    M = mesh.model_axis
+    if n % M:
+        return 0, n * unit
+    return m * (n // M) * unit, (m + 1) * (n // M) * unit
+
+
+def rms_norm_split(mesh, hs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                   eps: float, width: int) -> List[torch.Tensor]:
+    """:func:`rms_norm` over a ``width``-wide last dimension of which each
+    rank holds a block (its ``hs`` and ``ws``): the mean square is the psum
+    over model of each rank's sum of squares over ``width``.  Blocks that
+    are the whole width take :func:`rms_norm` itself."""
+    if hs[0].shape[-1] == width:
+        return [rms_norm(h, w, eps) for h, w in zip(hs, ws)]
+    fs = [h.float() for h in hs]
+    ss = mesh.psum([(f * f).sum(-1, keepdim=True) for f in fs], "model")
+    return [(f * torch.rsqrt(s / width + eps) * w.float()).to(h.dtype)
+            for f, s, w, h in zip(fs, ss, ws, hs)]
+
+
 def shard_hint(x, mesh, *spec):
     """The layout ``spec`` names (``DP`` resolved, indivisible axes
     dropped), as the reference's ``with_sharding_constraint``: a whole

@@ -27,20 +27,22 @@ training keeps each block's input and recomputes the rest in backward;
 place and returns it: KV caches by slice writes, recurrent states by
 copying each block's new state into its cache views.
 
-With a :class:`~repro_torch.core.exchange.ShardMesh` (``mesh=``) the dense,
-vlm and moe families run laid out by their templates' specs, as the
-reference's GSPMD places them: the batch split over data, attention, FFNs
-and shared experts tensor parallel over model, the routed experts expert
-parallel, ``embed`` and ``head`` split over the vocabulary (a lookup masked
-to each rank's rows and psummed; logits all-gathered over model, so the
-loss is the mesh-less cross entropy on each data shard's rows).  Whole
+With a :class:`~repro_torch.core.exchange.ShardMesh` (``mesh=``) every
+family runs laid out by its templates' specs, as the reference's GSPMD
+places them: the batch split over data, attention, FFNs, shared experts and
+the recurrent blocks' heads tensor parallel over model, the routed experts
+expert parallel, ``embed`` and ``head`` split over the vocabulary (a lookup
+masked to each rank's rows and psummed; logits all-gathered over model, so
+the loss is the mesh-less cross entropy on each data shard's rows).  The
+audio, ssm and hybrid families have one body a block for a mesh and for
+none: without a mesh it runs as a lone rank on the whole leaves
+(``common.lone_tree``), calling no collective.  Whole
 parameters are sharded on entry (:func:`~repro_torch.models.common
 .shard_params`); a :class:`~repro_torch.models.common.ShardedTree` is used
 as it is.  The batch holds the rows of the process's data shards, in
 order: the whole batch in one process, its shard's rows
 (``TokenPipeline.shard_for``) under a process group; outputs come back
-likewise.  The audio, ssm and hybrid families refuse a mesh
-(``NotImplementedError``).
+likewise.
 
 Dtypes follow the reference's: parameters and caches in the templates'
 dtype (bfloat16 unless overridden), the recurrences in float32.  The
@@ -64,17 +66,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..kernels.flash_attention.ops import flash_attention
 from . import attention as A
 from . import mamba2 as M2
 from . import moe as MOE
 from . import xlstm as XL
 from .common import (ShardedTree, cross_entropy, join_blocks, layer, layer_norm, leaf,
-                     materialize, model_sharded, rms_norm, shard_params, shard_zeros,
-                     sinusoidal_positions, stack_templates, tree_items)
+                     lone_tree, materialize, model_sharded, rms_norm, row_parallel,
+                     select_heads, shard_params, shard_zeros, sinusoidal_positions,
+                     split_heads, stack_templates, tree_items)
 
 FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
-MESH_FAMILIES = ("dense", "vlm", "moe")
+#: the families whose blocks have one body for a mesh and for none
+ONE_BODY = ("audio", "ssm", "hybrid")
 VLM_PATCHES = 256  # stub vision prefix length for the vlm family
 
 
@@ -221,7 +224,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, dtype: Optional[str
     template's specs (``batch`` the global batch)."""
     tmpl = cache_template(cfg, batch, max_len)
     if mesh is not None:
-        _require_mesh_family(cfg)
         return shard_zeros(tmpl, mesh, dtype)
     return materialize(None, tmpl, dtype_override=dtype, device=device)
 
@@ -261,33 +263,66 @@ def _mla_block(cfg, kind, p, h, positions, cache=None, pos=None, token_chunks=4)
     return h + MOE.dense_ffn(p["ffn"], hn), None
 
 
-def _ln(x, p, eps):
-    return layer_norm(x, p["w"], p["b"], eps)
+def _lns(hs, p: ShardedTree, eps):
+    """The layer norm ``p`` (``w``, ``b``) on each rank's rows."""
+    return [layer_norm(h, w, b, eps) for h, w, b in
+            zip(hs, p.gathered("w")[0], p.gathered("b")[0])]
 
 
-def _whisper_block(cfg, p, h, positions, *, causal=True, enc=None, cache=None,
-                   cross=None, pos=None):
-    """A pre-LN whisper block.  An encoder block (no ``xattn``) attends h;
+def _rms(hs, p: ShardedTree, key: str, eps):
+    return [rms_norm(h, w, eps) for h, w in zip(hs, p.gathered(key)[0])]
+
+
+def _cross_cached(cfg, p: ShardedTree, hs, cross: ShardedTree):
+    """Cross-attention of a decode step against the cached encoder K/V, as
+    the reference's decode does it (q without bias, no RoPE): each rank's
+    heads of ``hs @ wq`` (every head where they do not divide the model
+    axis), the cache's KV heads they group with, the rank's row block of
+    ``wo`` and a psum over model (``row_parallel``)."""
+    mesh = p.mesh
+    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    wq, q_spec = p.gathered("wq")
+    qs, q_heads = split_heads(mesh, [h @ w for h, w in zip(hs, wq)], H, Dh,
+                              model_sharded(q_spec[-1]))
+    kv_split = model_sharded(cross.specs["k"][2])
+    outs = []
+    for j, (q, r) in enumerate(zip(qs, mesh.local_ranks)):
+        c = cross.blocks[j]
+        n = c["k"].shape[2]
+        have = range(mesh.axis_index(r, "model") * n, mesh.axis_index(r, "model") * n + n) \
+            if kv_split else range(K)
+        need = [h // (H // K) for h in q_heads[j]]
+        o = A.flash_attention(q, select_heads(c["k"], have, need),
+                              select_heads(c["v"], have, need), causal=False)
+        outs.append(o.reshape(*o.shape[:2], -1))
+    wo, wo_spec = p.gathered("wo")
+    return row_parallel(mesh, outs, wo, wo_spec, full=len(q_heads[0]) == H)
+
+
+def _whisper_block(cfg, p: ShardedTree, hs, positions, *, causal=True, encs=None,
+                   cache=None, cross=None, pos=None):
+    """A pre-LN whisper block on each rank's rows ``hs`` (one body: ``p`` a
+    lone tree without a mesh).  An encoder block (no ``xattn``) attends h;
     a decoder block attends h causally (or through its self cache at
-    ``pos``), then cross-attends the encoder output ``enc`` (prefill) or
-    the cross cache's K/V (decode)."""
-    eps = cfg.norm_eps
-    ao, _ = A.gqa_attention(cfg, p["attn"], _ln(h, p["ln1"], eps), positions,
-                            cache=cache, cache_index=pos, causal=causal, use_rope=False)
-    h = h + ao
+    ``pos``), then cross-attends the encoder output ``encs`` (prefill; each
+    rank's rows of it, split over data as the tokens are) or the cross
+    cache's K/V (decode, :func:`_cross_cached`).  Attention is head
+    parallel (``attention._gqa_mesh``), the layer norms act on replicated
+    activations and the MLP is tensor parallel (``moe._gelu_mesh``)."""
+    mesh, eps = p.mesh, cfg.norm_eps
+    ao, _ = A._gqa_mesh(cfg, p.sub("attn"), _lns(hs, p.sub("ln1"), eps), positions, mesh,
+                        cache=cache, cache_index=pos, causal=causal, use_rope=False)
+    hs = [h + a for h, a in zip(hs, ao)]
     if "xattn" in p:
-        hn = _ln(h, p["ln2"], eps)
+        hn = _lns(hs, p.sub("ln2"), eps)
         if cross is None:
-            co, _ = A.gqa_attention(cfg, p["xattn"], hn, positions, causal=False,
-                                    kv_x=enc, use_rope=False)
+            co, _ = A._gqa_mesh(cfg, p.sub("xattn"), hn, positions, mesh, causal=False,
+                                kv_xs=encs, use_rope=False)
         else:
-            # q without bias against the cached encoder K/V, as the reference
-            B, S, _ = hn.shape
-            q = (hn @ p["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.hdim)
-            co = flash_attention(q, cross["k"], cross["v"], causal=False)
-            co = co.reshape(B, S, -1) @ p["xattn"]["wo"]
-        h = h + co
-    return h + MOE.gelu_ffn(p["ffn"], _ln(h, p["ln3"], eps))
+            co = _cross_cached(cfg, p.sub("xattn"), hn, cross)
+        hs = [h + c for h, c in zip(hs, co)]
+    fo = MOE._gelu_mesh(p.sub("ffn"), _lns(hs, p.sub("ln3"), eps), mesh)
+    return [h + f for h, f in zip(hs, fo)]
 
 
 def _remat(fn, *args):
@@ -314,71 +349,166 @@ _FP32_STATES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m"),
                 "mamba": ("ssm",)}
 
 
-def _promote_states(cache: Dict) -> None:
-    """Replace the ssm / hybrid recurrent-state leaves of ``cache`` that are
-    not float32 by float32 copies (in the dict, so the caller's cache holds
-    them), as the reference's first decode step returns them."""
-    for block, keys in _FP32_STATES.items():
-        state = cache["layers"].get(block)
-        for k in keys if state is not None else ():
-            if state[k].dtype != torch.float32:
-                state[k] = state[k].float()
+def _promote_states(cache: ShardedTree) -> None:
+    """Replace the ssm / hybrid recurrent-state leaves of every local rank's
+    block of ``cache`` that are not float32 by float32 copies (in the
+    blocks' dicts, so the caller's cache holds them), as the reference's
+    first decode step returns them."""
+    for blk in cache.blocks:
+        for block, keys in _FP32_STATES.items():
+            state = blk["layers"].get(block)
+            for k in keys if state is not None else ():
+                if state[k].dtype != torch.float32:
+                    state[k] = state[k].float()
 
 
-def _set_state(state: Optional[Dict], new: Optional[Dict]) -> None:
-    """Copy a block's new recurrent state into its cache views."""
+def _set_state(state: Optional[ShardedTree], new) -> None:
+    """Copy each rank's new recurrent state into its blocks of the cache."""
     if state is not None:
-        for k, t in new.items():
-            state[k].copy_(t)
+        for blk, nw in zip(state.blocks, new):
+            for k, t in nw.items():
+                blk[k].copy_(t)
 
 
-def _xlstm_super(cfg, p, h, state=None):
-    """slstm_every - 1 mLSTM blocks, then one sLSTM block, each residual;
-    with ``state`` (decode), every block's state is updated in place."""
-    eps = cfg.norm_eps
-    for j in range(_n_layers(p["mlstm"])):
-        pj = layer(p["mlstm"], j)
-        sj = None if state is None else layer(state["mlstm"], j)
-        y, new = XL.mlstm_block(cfg, pj["cell"], rms_norm(h, pj["ln"], eps), state=sj)
-        _set_state(sj, new)
-        h = h + y
-    ss = None if state is None else state["slstm"]
-    y, new = XL.slstm_block(cfg, p["slstm"]["cell"], rms_norm(h, p["slstm"]["ln"], eps),
-                            state=ss)
-    _set_state(ss, new)
-    return h + y
-
-
-def _zamba_super(cfg, p, shared, h, positions, state=None, attn_cache=None, wpos=None):
-    """shared_attn_every Mamba2 blocks, each residual, then the shared
-    attention + MLP block; decode passes the Mamba2 states (updated in
-    place) and the shared block's ring cache with its slot ``wpos``."""
-    for j in range(_n_layers(p["mamba"])):
-        pj = layer(p["mamba"], j)
-        sj = None if state is None else layer(state["mamba"], j)
-        y, new = M2.mamba2_block(cfg, pj["cell"], rms_norm(h, pj["ln"], cfg.norm_eps),
+def _xlstm_super(cfg, p: ShardedTree, hs, state=None):
+    """slstm_every - 1 mLSTM blocks, then one sLSTM block, each residual,
+    on each rank's rows; with ``state`` (decode), every block's state is
+    updated in place."""
+    eps, mesh = cfg.norm_eps, p.mesh
+    ml = p.sub("mlstm")
+    for j in range(ml.n_layers()):
+        pj = ml.layer(j)
+        sj = None if state is None else state.sub("mlstm").layer(j)
+        ys, new = XL.mlstm_block(cfg, pj.sub("cell"), _rms(hs, pj, "ln", eps), mesh=mesh,
                                  state=sj)
         _set_state(sj, new)
-        h = h + y
-    return _dense_block(cfg, shared, h, positions, attn_cache, wpos)
+        hs = [h + y for h, y in zip(hs, ys)]
+    ss = None if state is None else state.sub("slstm")
+    sl = p.sub("slstm")
+    ys, new = XL.slstm_block(cfg, sl.sub("cell"), _rms(hs, sl, "ln", eps), mesh=mesh,
+                             state=ss)
+    _set_state(ss, new)
+    return [h + y for h, y in zip(hs, ys)]
+
+
+def _zamba_super(cfg, p: ShardedTree, shared: ShardedTree, hs, positions, state=None,
+                 attn_cache=None, wpos=None):
+    """shared_attn_every Mamba2 blocks, each residual, then the shared
+    attention + MLP block, on each rank's rows; decode passes the Mamba2
+    states (updated in place) and the shared block's ring cache with its
+    slot ``wpos``.  The shared block's weights are the same at every
+    super-block; under FSDP its leaves are all-gathered over data at each
+    application (once a super-block, counted as any gather)."""
+    mesh = p.mesh
+    mb = p.sub("mamba")
+    for j in range(mb.n_layers()):
+        pj = mb.layer(j)
+        sj = None if state is None else state.sub("mamba").layer(j)
+        ys, new = M2.mamba2_block(cfg, pj.sub("cell"), _rms(hs, pj, "ln", cfg.norm_eps),
+                                  mesh=mesh, state=sj)
+        _set_state(sj, new)
+        hs = [h + y for h, y in zip(hs, ys)]
+    return _dense_block_mesh(cfg, mesh, shared, hs, positions, attn_cache, wpos)
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill) and decode
 # ---------------------------------------------------------------------------
 
-def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+def _tree(cfg, params, mesh) -> ShardedTree:
+    """The parameter tree a one-body family reads: laid out on ``mesh``, or
+    a lone rank's whole leaves as they are."""
+    return lone_tree(params) if mesh is None else _sharded(cfg, params, mesh)
+
+
+def _rows(x: torch.Tensor, mesh):
+    """Each local rank's rows of ``x`` (a lone rank's: all of them)."""
+    return [x] if mesh is None else local_rows(x, mesh)
+
+
+def _encode(cfg, sp: ShardedTree, frames):
+    """Whisper's encoder over each rank's frame rows."""
+    dt = sp.blocks[0]["embed"].dtype
+    encs = [f.to(dt) for f in frames]
+    T = encs[0].shape[1]
+    encs = [e + sinusoidal_positions(T, cfg.d_model, device=e.device).to(e.dtype)
+            for e in encs]
+    positions = torch.arange(T, device=encs[0].device)
+    stack = sp.sub("enc_layers")
+    for i in range(stack.n_layers()):
+        encs = _remat(partial(_whisper_block, cfg, causal=False), stack.layer(i), encs,
+                      positions)
+    return _lns(encs, sp.sub("ln_enc"), cfg.norm_eps)
+
+
+def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor, *, mesh=None
+           ) -> torch.Tensor:
     """Whisper's encoder over frame embeddings (B, T, d), the stub
     frontend's output: sinusoidal positions, the non-causal blocks, the
-    final layer norm.  Part of :func:`forward` for the audio family."""
-    enc = frames.to(params["embed"].dtype)
-    T = enc.shape[1]
-    enc = enc + sinusoidal_positions(T, cfg.d_model, device=enc.device).to(enc.dtype)
-    positions = torch.arange(T, device=enc.device)
-    for i in range(_n_layers(params["enc_layers"])):
-        enc = _remat(partial(_whisper_block, cfg, causal=False),
-                     layer(params["enc_layers"], i), enc, positions)
-    return _ln(enc, params["ln_enc"], cfg.norm_eps)
+    final layer norm.  Part of :func:`forward` for the audio family.
+    ``mesh`` as in :func:`forward`; the output is the rows of the process's
+    data shards."""
+    out = _encode(cfg, _tree(cfg, params, mesh), _rows(frames, mesh))
+    return out[0] if mesh is None else join_rows(out, mesh, frames)
+
+
+def _one_body_hidden(cfg: ArchConfig, sp: ShardedTree, batch, mesh):
+    """The final-normed hidden states of each local rank's rows for the
+    audio, ssm and hybrid families, whose blocks have one body for a mesh
+    and for none (``sp`` a lone tree without ``mesh``)."""
+    ranks, eps = sp.mesh, cfg.norm_eps
+    xs = _embed_mesh(sp, _rows(batch["tokens"], mesh), ranks)
+    S = xs[0].shape[1]
+    positions = torch.arange(S, device=xs[0].device)
+    stack = sp.sub("layers")
+    if cfg.family == "audio":
+        encs = _encode(cfg, sp, _rows(batch["frames"], mesh))
+        xs = [x + sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)
+              for x in xs]
+        for i in range(stack.n_layers()):
+            xs = _remat(partial(_whisper_block, cfg, encs=encs), stack.layer(i), xs,
+                        positions)
+        return _lns(xs, sp.sub("ln_f"), eps)
+    for i in range(stack.n_layers()):
+        xs = (_remat(partial(_xlstm_super, cfg), stack.layer(i), xs) if cfg.family == "ssm"
+              else _remat(partial(_zamba_super, cfg), stack.layer(i), sp.sub("shared"), xs,
+                          positions))
+    return _rms(xs, sp, "ln_f", eps)
+
+
+@torch.no_grad()
+def _one_body_decode(cfg: ArchConfig, sp: ShardedTree, cache, tokens, pos: int, mesh):
+    ranks, eps = sp.mesh, cfg.norm_eps
+    ct = lone_tree(cache) if mesh is None else cache
+    xs = _embed_mesh(sp, _rows(tokens, mesh), ranks)
+    positions = pos + torch.arange(tokens.shape[1], device=xs[0].device)
+    stack, cl = sp.sub("layers"), ct.sub("layers")
+    if cfg.family == "audio":
+        max_len = cl.template["k"].shape[2]
+        xs = [x + sinusoidal_positions(max_len, cfg.d_model)[pos].to(x.device, x.dtype)
+              for x in xs]
+        for i in range(stack.n_layers()):
+            xs = _whisper_block(cfg, stack.layer(i), xs, positions, cache=cl.layer(i),
+                                cross=ct.sub("cross").layer(i), pos=pos)
+        hs = _lns(xs, sp.sub("ln_f"), eps)
+    elif cfg.family == "ssm":
+        _promote_states(ct)
+        for i in range(stack.n_layers()):
+            xs = _xlstm_super(cfg, stack.layer(i), xs, cl.layer(i))
+        hs = _rms(xs, sp, "ln_f", eps)
+    else:
+        # the shared block's cache is a ring buffer of the window: the step
+        # writes slot pos mod win and attends slots 0..that slot (kv_len),
+        # so once the ring has wrapped the older slots past it drop out, as
+        # in the reference (ROADMAP C.3)
+        wpos = pos % ct.sub("shared").template["k"].shape[2]
+        _promote_states(ct)
+        for i in range(stack.n_layers()):
+            xs = _zamba_super(cfg, stack.layer(i), sp.sub("shared"), xs, positions,
+                              cl.layer(i), ct.sub("shared").layer(i), wpos)
+        hs = _rms(xs, sp, "ln_f", eps)
+    logits = logits_mesh(cfg, sp, hs, ranks, {"tokens": tokens})
+    return (logits[0] if mesh is None else join_rows(logits, mesh, tokens)), cache
 
 
 def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None
@@ -393,6 +523,10 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None
     layout of the module docstring; the logits (and the aux loss) on the
     tokens' device."""
     _require_family(cfg)
+    if cfg.family in ONE_BODY:
+        sp = _tree(cfg, params, mesh)
+        logits = logits_mesh(cfg, sp, _one_body_hidden(cfg, sp, batch, mesh), sp.mesh, batch)
+        return logits[0] if mesh is None else join_rows(logits, mesh, batch["tokens"])
     if mesh is not None:
         sp = _sharded(cfg, params, mesh)
         hs, aux = hidden_mesh(cfg, sp, batch, mesh)
@@ -427,19 +561,7 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None
                     aux_total = aux_total + aux
         return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux_total
 
-    if fam == "audio":
-        enc = encode(cfg, params, batch["frames"])
-        x = x + sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)
-        for i in range(_n_layers(params["layers"])):
-            x = _remat(partial(_whisper_block, cfg, enc=enc), layer(params["layers"], i),
-                       x, positions)
-        return _logits(cfg, params, _ln(x, params["ln_f"], cfg.norm_eps))
-
-    for i in range(_n_layers(params["layers"])):
-        p = layer(params["layers"], i)
-        x = (_remat(partial(_xlstm_super, cfg), p, x) if fam == "ssm"
-             else _remat(partial(_zamba_super, cfg), p, params["shared"], x, positions))
-    return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
+    raise ValueError(fam)
 
 
 def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None) -> torch.Tensor:
@@ -480,6 +602,8 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
     _require_family(cfg)
     fam = cfg.family
     pos = int(pos)
+    if fam in ONE_BODY:
+        return _one_body_decode(cfg, _tree(cfg, params, mesh), cache, tokens, pos, mesh)
     if mesh is not None:
         return _decode_mesh(cfg, _sharded(cfg, params, mesh), cache, tokens, pos, mesh)
     x = params["embed"][tokens]
@@ -496,45 +620,14 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens: torch.Tensor
             for i in range(_n_layers(params[name])):
                 x, _ = _mla_block(cfg, kind, layer(params[name], i), x, positions,
                                   layer(cache[name], i), pos, token_chunks=1)
-    elif fam == "audio":
-        max_len = cache["layers"]["k"].shape[2]
-        x = x + sinusoidal_positions(max_len, cfg.d_model)[pos].to(x.device, x.dtype)
-        for i in range(_n_layers(params["layers"])):
-            x = _whisper_block(cfg, layer(params["layers"], i), x, positions,
-                               cache=layer(cache["layers"], i),
-                               cross=layer(cache["cross"], i), pos=pos)
-        return _logits(cfg, params, _ln(x, params["ln_f"], cfg.norm_eps)), cache
-    elif fam == "ssm":
-        _promote_states(cache)
-        for i in range(_n_layers(params["layers"])):
-            x = _xlstm_super(cfg, layer(params["layers"], i), x, layer(cache["layers"], i))
-    else:
-        # the shared block's cache is a ring buffer of the window: the step
-        # writes slot pos mod win and attends slots 0..that slot (kv_len),
-        # so once the ring has wrapped the older slots past it drop out, as
-        # in the reference (ROADMAP C.3)
-        wpos = pos % cache["shared"]["k"].shape[2]
-        _promote_states(cache)
-        for i in range(_n_layers(params["layers"])):
-            x = _zamba_super(cfg, layer(params["layers"], i), params["shared"], x,
-                             positions, layer(cache["layers"], i),
-                             layer(cache["shared"], i), wpos)
     return _logits(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps)), cache
 
 
 # ---------------------------------------------------------------------------
-# under a mesh (dense, vlm, moe)
+# under a mesh
 # ---------------------------------------------------------------------------
 
-def _require_mesh_family(cfg: ArchConfig) -> None:
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not run on a mesh yet; "
-            f"the families that do are {MESH_FAMILIES} (run it with mesh=None)")
-
-
 def _sharded(cfg: ArchConfig, params, mesh) -> ShardedTree:
-    _require_mesh_family(cfg)
     return shard_params(params, model_template(cfg), mesh)
 
 
@@ -655,6 +748,9 @@ def _stacks(cfg, sp):
 def hidden_mesh(cfg: ArchConfig, sp: ShardedTree, batch, mesh):
     """The final-normed hidden states of each local rank's data shard and,
     for the moe family, each rank's summed aux loss."""
+    if cfg.family in ONE_BODY:
+        hs = _one_body_hidden(cfg, sp, batch, mesh)
+        return hs, [torch.zeros((), dtype=torch.float32, device=h.device) for h in hs]
     split = splits_rows(batch["tokens"], mesh)
     xs = _embed_mesh(sp, local_rows(batch["tokens"], mesh), mesh)
     if cfg.family == "vlm" and "patch_embeds" in batch:

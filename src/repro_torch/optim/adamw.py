@@ -23,8 +23,13 @@ layout and reduced (``launch.steps.make_train_step`` psum-scatters them
 over data into it).  Each rank updates its block of every parameter, in
 the same row slices, and the blocks split over data are all-gathered into
 the whole parameter; the global norm is the psum over the mesh of each
-rank's squares of the blocks it alone holds.  8-bit moments are not
-sharded yet (their per-row scales would span ranks).
+rank's squares of the blocks it alone holds.  8-bit moments are laid out
+as the 32-bit ones, their per-row scales by the parameter's spec with the
+row axis whole: where a spec splits a row (its last axis over model, or
+over data under ZeRO-1) its scale is the max over the ranks that hold its
+pieces (:meth:`~repro_torch.core.exchange.ShardMesh.pmax`), and where
+ZeRO-1 splits the rows over data the ranks' scales are all-gathered into
+the scale block.
 """
 from __future__ import annotations
 
@@ -94,13 +99,14 @@ def shard_state(state: "AdamWState", params: ShardedTree) -> "AdamWState":
     :func:`adamw_state_template` (read now); sharded moments as they are."""
     if isinstance(state.m, ShardedTree):
         return state
-    if state.m_scale is not None:
-        raise NotImplementedError("8-bit AdamW moments are not sharded over a mesh yet")
-    t = adamw_state_template(params.template)
+    bits = 32 if state.m_scale is None else 8
+    t = adamw_state_template(params.template, bits)
     return AdamWState(step=state.step.to(params.mesh.rank_device(params.mesh.local_ranks[0])),
                       m=shard_params(state.m, t["m"], params.mesh),
                       v=shard_params(state.v, t["v"], params.mesh),
-                      m_scale=None, v_scale=None)
+                      m_scale=None if bits == 32 else shard_params(state.m_scale, t["m_scale"],
+                                                                   params.mesh),
+                      v_scale=None)
 
 
 def adamw_init(params, state_bits: int = 32) -> AdamWState:
@@ -108,13 +114,13 @@ def adamw_init(params, state_bits: int = 32) -> AdamWState:
     :class:`ShardedTree`, each rank's blocks of moments laid out by
     :func:`adamw_state_template`."""
     if isinstance(params, ShardedTree):
-        if state_bits != 32:
-            raise NotImplementedError("8-bit AdamW moments are not sharded over a mesh yet")
-        t = adamw_state_template(params.template)
+        t = adamw_state_template(params.template, state_bits)
         dev = params.mesh.rank_device(params.mesh.local_ranks[0])
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           m=shard_zeros(t["m"], params.mesh), v=shard_zeros(t["v"], params.mesh),
-                          m_scale=None, v_scale=None)
+                          m_scale=None if state_bits == 32 else shard_zeros(t["m_scale"],
+                                                                            params.mesh),
+                          v_scale=None)
     def zeros(dt, shape=None):
         return lambda p: torch.zeros(p.shape if shape is None else shape(p),
                                      dtype=dt, device=p.device)
@@ -159,10 +165,9 @@ def adamw_update_impl(params, state: AdamWState, grads, lr, *,
     :class:`ShardedTree`: the mesh form of the module docstring, ``grads``
     a :class:`ShardedTree` in the moments' layout."""
     if isinstance(params, ShardedTree):
-        if state_bits != 32:
-            raise NotImplementedError("8-bit AdamW moments are not sharded over a mesh yet")
         return _update_sharded(params, state, grads, lr, b1=b1, b2=b2, eps=eps,
-                               weight_decay=weight_decay, clip_norm=clip_norm)
+                               weight_decay=weight_decay, clip_norm=clip_norm,
+                               state_bits=state_bits)
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
@@ -220,13 +225,14 @@ def zero1_dim(p_spec, m_spec):
 
 
 def _update_sharded(params: ShardedTree, state: AdamWState, grads: ShardedTree, lr, *,
-                    b1, b2, eps, weight_decay, clip_norm):
+                    b1, b2, eps, weight_decay, clip_norm, state_bits):
     mesh = params.mesh
     p_specs = [sp for _, sp in tree_items(params.specs)]
     m_specs = [sp for _, sp in tree_items(state.m.specs)]
     g_specs = [sp for _, sp in tree_items(grads.specs)]
     if g_specs != m_specs:
         raise ValueError("the gradients are not laid out as the moments")
+    q8 = state_bits == 8
 
     def leaves(tree):
         return [t for _, t in tree_items(tree)]
@@ -235,6 +241,7 @@ def _update_sharded(params: ShardedTree, state: AdamWState, grads: ShardedTree, 
     gs = [leaves(b) for b in grads.blocks]
     ms = [leaves(b) for b in state.m.blocks]
     vs = [leaves(b) for b in state.v.blocks]
+    scs = [leaves(b) for b in state.m_scale.blocks] if q8 else None
     sq = []
     for j, r in enumerate(mesh.local_ranks):
         dev = mesh.rank_device(r)
@@ -248,32 +255,65 @@ def _update_sharded(params: ShardedTree, state: AdamWState, grads: ShardedTree, 
         sq = mesh.psum(sq, axis)
     gnorms = [torch.sqrt(t) for t in sq]
     step = state.step + 1
+    consts = []
+    for gnorm in gnorms:
+        stp = step.to(gnorm.device)
+        consts.append((torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0),
+                       1 - b1 ** stp.float(), 1 - b2 ** stp.float(),
+                       torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)))
     with torch.no_grad():
         for li, (p_spec, m_spec) in enumerate(zip(p_specs, m_specs)):
             dim = zero1_dim(p_spec, m_spec)
-            works = []
+            works, mscs = [], []
             for j, r in enumerate(mesh.local_ranks):
-                p, g, m, v = ps[j][li], gs[j][li], ms[j][li], vs[j][li]
+                p = ps[j][li]
                 if dim is not None:
-                    n = m.shape[dim]
+                    n = ms[j][li].shape[dim]
                     p = p.narrow(dim, mesh.axis_index(r, "data") * n, n)
-                work = p if p.is_contiguous() else p.contiguous()
-                gnorm = gnorms[j]
-                scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-                stp = step.to(gnorm.device)
-                bc1, bc2 = 1 - b1 ** stp.float(), 1 - b2 ** stp.float()
-                lr_ = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
-                rows = _row_step(work)
-                for pw, gw, mw, vw in zip(*[_slices(t, rows) for t in
-                                            (work, g.contiguous(), m, v)]):
+                works.append(p if p.is_contiguous() else p.contiguous())
+                if q8:
+                    # the scales' rows are the parameter's; ZeRO-1 may split
+                    # the moment's rows over data further
+                    sc = scs[j][li]
+                    if dim is not None and dim < sc.dim() - 1:
+                        n = ms[j][li].shape[dim]
+                        sc = sc.narrow(dim, mesh.axis_index(r, "data") * n, n).contiguous()
+                    mscs.append(sc)
+            rows = _row_step(works[0])
+            parts = [[_slices(t, rows) for t in (works[j], gs[j][li].contiguous(), ms[j][li],
+                                                vs[j][li])]
+                     + [_slices(mscs[j], rows) if q8 else itertools.repeat(None)]
+                     for j in range(len(works))]
+            for slices in zip(*[zip(*pj) for pj in parts]):
+                m_fs = []
+                for (pw, gw, mw, vw, sw), (scale, bc1, bc2, lr_) in zip(slices, consts):
                     gw = gw.float() * scale
-                    mf = b1 * mw + (1 - b1) * gw
-                    vf = b2 * vw + (1 - b2) * gw * gw
+                    mf = _dq8(mw, sw) if q8 else mw
+                    vf = vw.float() if q8 else vw
+                    mf = b1 * mf + (1 - b1) * gw
+                    vf = b2 * vf + (1 - b2) * gw * gw
                     u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps) + weight_decay * pw.float()
                     pw.copy_(pw.float() - lr_ * u)
-                    mw.copy_(mf)
                     vw.copy_(vf)
-                works.append(work)
+                    if q8:
+                        m_fs.append(mf)
+                    else:
+                        mw.copy_(mf)
+                if not q8:
+                    continue
+                # a row's int8 scale is its max |m| over every rank that
+                # holds a piece of the row
+                amax = [torch.amax(torch.abs(mf), dim=-1, keepdim=True) for mf in m_fs]
+                for axis in spec_axes(m_spec[-1]):
+                    amax = mesh.pmax(amax, axis)
+                for (_, _, mw, _, sw), mf, a in zip(slices, m_fs, amax):
+                    sc = torch.clamp(a, min=1e-12) / 127.0
+                    mw.copy_(torch.round(mf / sc).to(torch.int8))
+                    sw.copy_(sc)
+            if q8 and dim is not None and dim < scs[0][li].dim() - 1:
+                full = mesh.all_gather_axis(mscs, "data", dim)
+                for j in range(len(full)):
+                    scs[j][li].copy_(full[j])
             if dim is not None:
                 works = mesh.all_gather_axis(works, "data", dim)
                 for j in range(len(works)):
@@ -282,7 +322,7 @@ def _update_sharded(params: ShardedTree, state: AdamWState, grads: ShardedTree, 
                 for j, w in enumerate(works):
                     if w.data_ptr() != ps[j][li].data_ptr():
                         ps[j][li].copy_(w)
-    return params, AdamWState(step=step, m=state.m, v=state.v, m_scale=None,
+    return params, AdamWState(step=step, m=state.m, v=state.v, m_scale=state.m_scale,
                               v_scale=None), gnorms[0]
 
 

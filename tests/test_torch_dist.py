@@ -12,7 +12,8 @@ the group and a deadline on the join, so a hung rank fails the test):
   to max(1, max|ref|); each rank's `collectives` equals the census and every
   rank derives the same plan;
 - `compressed_psum` over two error-feedback steps equals the reference's at
-  fp32 rounding;
+  fp32 rounding; `ShardMesh.pmax` over either axis equals the one-process
+  mesh's bit for bit;
 - expert-parallel `moe_layer` at (data, model) = (2, 1), (2, 2), (4, 1) —
   and, in one process, also (1, 1) — plain, under `moe_rs_combine` and under
   `moe_fp8_dispatch`, equals reference `moe_layer` on Auto-axis meshes of
@@ -161,6 +162,13 @@ def _run_moe(mesh, arrs, flag, token_chunks=1):
 # one gloo rank
 # ---------------------------------------------------------------------------
 
+def _pmax_input(rank):
+    """Rank ``rank``'s (3, 5) tensor for ``pmax``: every entry's max falls on
+    some rank, with ties (the rounded values repeat across ranks)."""
+    return torch.as_tensor(np.round(np.random.default_rng(40 + rank)
+                                    .standard_normal((3, 5)), 1), dtype=torch.float32)
+
+
 def _rank_main(rank, world, tmp):
     """Entry point of a spawned rank: every case of its world, results to
     ``rank{world}_{rank}.pt``."""
@@ -181,6 +189,12 @@ def _rank_main(rank, world, tmp):
                                         mesh=mesh)
             out[f"gnn/{name}/{dispatch}/{K}x{M}"] = (r(inputs, params)[0],
                                                      mesh.collectives, _plan_key(r))
+        for M, axis in ((1, "shards"), (2, "model"), (2, "shards")):
+            if M in meshes:
+                mesh = meshes[M]
+                mesh.collectives = 0
+                got = mesh.pmax([_pmax_input(rank)], axis)[0]
+                out[f"pmax/{M}/{axis}"] = (got, mesh.collectives)
         mesh = meshes[1]
         mesh.collectives, res = 0, None
         for step in range(2):
@@ -461,6 +475,25 @@ def test_compressed_psum_matches_reference(runs, world):
                 assert _rel_err(got, want) < 1e-6
     assert mesh.collectives == 4
     assert all(res["cp/collectives"] == 4 for res in ranks[world])
+
+
+@pytest.mark.parametrize("M,axis", [(1, "shards"), (2, "model"), (2, "shards")])
+@pytest.mark.parametrize("world", WORLDS)
+def test_pmax_on_gloo_ranks_matches_one_process(runs, world, M, axis):
+    """``ShardMesh.pmax`` (the 8-bit moments' row scales) under the group:
+    each rank's result equals the one-process mesh's for that rank, bit for
+    bit, and counts one collective."""
+    ranks, _, _ = runs
+    mesh = ShardMesh(["cpu"] * world, world // M, M)
+    want = mesh.pmax([_pmax_input(r) for r in range(world)], axis)
+    assert mesh.collectives == 1
+    for r in range(world):
+        got, n = ranks[world][r][f"pmax/{M}/{axis}"]
+        assert torch.equal(got, want[r]) and n == 1
+    peers = [r for r in range(world) if mesh.axis_index(r, "model") == 0] \
+        if axis == "shards" else list(range(M))
+    np.testing.assert_array_equal(
+        want[0].numpy(), np.max([_pmax_input(r).numpy() for r in peers], axis=0))
 
 
 def test_compressed_psum_of_one_rank_is_dequantize_of_quantize():

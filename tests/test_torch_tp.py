@@ -329,7 +329,8 @@ def test_specs_match_reference(name, shape):
 
 
 @pytest.mark.parametrize("shape", MESHES + ((4, 1),), ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "smollm-6h", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "smollm-6h", "deepseek-v2-236b",
+                                  "whisper-large-v3", "xlstm-1.3b", "zamba2-2.7b"])
 def test_shard_then_unshard_is_the_identity(arch, shape):
     """Every rank's block is its slice of the leaf, a copy of its own; the
     blocks reassemble the whole; ``shard_zeros`` allocates the same blocks."""
@@ -532,16 +533,6 @@ def test_dense_forward_collectives(arch, shape):
     assert mesh.collectives == reckoned_collectives(cfg, mesh)
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "xlstm-1.3b", "zamba2-2.7b"])
-def test_families_without_a_mesh_refuse_one(arch):
-    cfg = _cfg(arch)
-    mesh = _mesh((1, 2))
-    with pytest.raises(NotImplementedError, match="does not run on a mesh"):
-        lm.forward(cfg, {}, {"tokens": torch.zeros((2, 4), dtype=torch.long)}, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="does not run on a mesh"):
-        lm.init_cache(cfg, 2, 8, mesh=mesh)
-
-
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
@@ -660,8 +651,9 @@ def test_combine_matches_the_reference_and_the_scatter_gradient():
 
 def test_mesh_path_loads_neither_jax_nor_repro(tmp_path):
     """Forward, a ZeRO-1 + FSDP train step, a per-host checkpoint and its
-    elastic restore, and ``serve_requests`` on a mesh load nothing of jax
-    or repro."""
+    elastic restore, ``serve_requests``, and the audio, ssm and hybrid
+    families' forward and decode step on a mesh load nothing of jax or
+    repro."""
     code = textwrap.dedent(f"""
         import sys, torch, numpy as np
         from repro_torch import runtime_flags
@@ -686,6 +678,16 @@ def test_mesh_path_loads_neither_jax_nor_repro(tmp_path):
                            shardings={{"params": lm.model_template(cfg)}})
         serve_requests(cfg, p, [np.arange(4)] * 2, batch=2, max_prompt=4, max_new=2,
                        mesh=mesh)
+        for arch in ("whisper-large-v3", "xlstm-1.3b", "zamba2-2.7b"):
+            c = reduced(get_config(arch))
+            w = materialize(torch.Generator().manual_seed(0), lm.model_template(c),
+                            "float32", "cpu")
+            b = {{"tokens": tok}}
+            if c.family == "audio":
+                b["frames"] = torch.zeros((4, c.enc_len, c.d_model))
+            lm.forward(c, w, b, mesh=mesh)
+            lm.decode_step(c, w, lm.init_cache(c, 4, 8, dtype="float32", mesh=mesh),
+                           tok[:, :1], 0, mesh=mesh)
         bad = [m for m in sys.modules if m.startswith("jax") or m == "repro"
                or m.startswith("repro.")]
         print(bad)

@@ -7,6 +7,11 @@ timeout, a 300 s join deadline) reads only its data shard's rows, as
 - `lm.forward` of reduced qwen2 (tensor-parallel attention and FFN,
   vocabulary-parallel embedding and logits) and deepseek-v2 (MLA, the
   expert-parallel MoE, shared experts);
+- `lm.forward` and three `decode_step`s of reduced whisper (frames, a
+  seeded cross cache), xlstm and zamba2 (the recurrent blocks' gathers and
+  split norms, the sharded recurrent caches);
+- two `make_train_step` steps of reduced deepseek-v2 with 8-bit moments
+  (the row scales' `pmax` over the group);
 - two `make_train_step` steps of reduced smollm, plain and under
   `zero1_opt_state` + `fsdp_params` with 2 microbatches, autograd passing
   through the group's collectives;
@@ -33,9 +38,10 @@ from repro_torch import runtime_flags
 from repro_torch.checkpointing import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.exchange import ShardMesh
+from repro_torch.launch import steps
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
-from repro_torch.models.common import materialize, tree_items, unshard_params
+from repro_torch.models.common import materialize, shard_params, tree_items, unshard_params
 from repro_torch.optim.adamw import adamw_init
 
 SHAPE = (2, 2)
@@ -43,6 +49,8 @@ WORLD = SHAPE[0] * SHAPE[1]
 DEADLINE_S = 300
 FORWARD_ARCHS = ("qwen2-1.5b", "deepseek-v2-236b")
 SETTINGS = {"plain": ((), 1), "zero1_fsdp_mb2": (("zero1_opt_state", "fsdp_params"), 2)}
+FAMILY_ARCHS = ("whisper-large-v3", "xlstm-1.3b", "zamba2-2.7b")
+DECODE_STEPS, CACHE_LEN = 3, 8
 
 
 def _weights(arch):
@@ -53,6 +61,54 @@ def _weights(arch):
 def _tokens(arch, seed):
     cfg = reduced(get_config(arch))
     return torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (8, 16)))
+
+
+def _family_batch(arch, rows):
+    """``rows`` of the family's 8-row batch (tokens; whisper's frames)."""
+    cfg = reduced(get_config(arch))
+    b = {"tokens": rows(_tokens(arch, 1))}
+    if cfg.family == "audio":
+        b["frames"] = rows(torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (8, cfg.enc_len, cfg.d_model)), dtype=torch.float32))
+    return b
+
+
+def _family_decode(arch, mesh, rows):
+    """Three decode steps of ``rows`` on a cache sharded over ``mesh``
+    (whisper's cross cache seeded, each rank's block of it)."""
+    cfg = reduced(get_config(arch))
+    cache = lm.init_cache(cfg, 8, CACHE_LEN, dtype="float32", mesh=mesh)
+    if cfg.family == "audio":
+        sub = cache.sub("cross")
+        rng = np.random.default_rng(7)
+        whole = {k: torch.as_tensor(rng.standard_normal(l.shape), dtype=torch.float32)
+                 for k, l in sub.template.items()}
+        for dst, src in zip(sub.blocks, shard_params(whole, sub.template, mesh).blocks):
+            for k in dst:
+                dst[k].copy_(src[k])
+    tokens, p, out = rows(_tokens(arch, 3)), _weights(arch), []
+    with torch.no_grad():
+        for pos in range(DECODE_STEPS):
+            logits, cache = lm.decode_step(cfg, p, cache, tokens[:, pos:pos + 1], pos,
+                                           mesh=mesh)
+            out.append(logits)
+    return out
+
+
+def _train_8bit(mesh, rows):
+    """Two steps of reduced deepseek-v2 with 8-bit moments on ``mesh``."""
+    bits = steps.opt_state_bits
+    steps.opt_state_bits = lambda cfg: 8
+    try:
+        cfg = reduced(get_config("deepseek-v2-236b"))
+        p = _weights("deepseek-v2-236b")
+        opt = adamw_init(p, 8)
+        step = make_train_step(cfg, mesh, peak_lr=1e-2, total_steps=4)
+        for i in range(2):
+            p, opt, m = step(p, opt, {"tokens": rows(_tokens("deepseek-v2-236b", 20 + i))})
+    finally:
+        steps.opt_state_bits = bits
+    return p, opt, (m["loss"], m["grad_norm"])
 
 
 def _train(mesh, setting, rows):
@@ -95,6 +151,14 @@ def _rank_main(rank, tmp):
             cfg = reduced(get_config(arch))
             o = lm.forward(cfg, _weights(arch), {"tokens": rows(_tokens(arch, 1))}, mesh=mesh)
             out[f"forward/{arch}"] = o[0] if cfg.family == "moe" else o
+        for arch in FAMILY_ARCHS:
+            cfg = reduced(get_config(arch))
+            out[f"forward/{arch}"] = lm.forward(cfg, _weights(arch), _family_batch(arch, rows),
+                                                mesh=mesh)
+    for arch in FAMILY_ARCHS:
+        out[f"decode/{arch}"] = _family_decode(arch, mesh, rows)
+    p, opt, metrics = _train_8bit(mesh, rows)
+    out["train/q8"] = (opt.m.blocks[0], opt.m_scale.blocks[0], opt.v.blocks[0], metrics)
     for setting in SETTINGS:
         p, opt, metrics = _train(mesh, setting, rows)
         out[f"train/{setting}"] = (p.blocks[0], opt.m.blocks[0], opt.v.blocks[0], metrics)
@@ -150,6 +214,40 @@ def test_forward_on_gloo_ranks_equals_one_process(ranks, arch, one_thread):
     for r, out in enumerate(res):
         k = r // SHAPE[1]
         assert torch.equal(out[f"forward/{arch}"], want[k * per:(k + 1) * per]), r
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_decode_on_gloo_ranks_equal_one_process(ranks, arch, one_thread):
+    """The audio, ssm and hybrid families' forward and three decode steps
+    on each rank equal the one-process mesh's rows of its shard, bit for
+    bit."""
+    _, res = ranks
+    cfg = reduced(get_config(arch))
+    mesh = _one_process()
+    with torch.no_grad():
+        want = lm.forward(cfg, _weights(arch), _family_batch(arch, lambda x: x), mesh=mesh)
+    steps_want = _family_decode(arch, mesh, lambda x: x)
+    per = want.shape[0] // SHAPE[0]
+    for r, out in enumerate(res):
+        k = r // SHAPE[1]
+        assert torch.equal(out[f"forward/{arch}"], want[k * per:(k + 1) * per]), r
+        for got, w in zip(out[f"decode/{arch}"], steps_want):
+            assert torch.equal(got, w[k * per:(k + 1) * per]), r
+
+
+def test_8bit_moments_on_gloo_ranks_equal_one_process(ranks, one_thread):
+    """Two steps of 8-bit AdamW on reduced deepseek-v2: every rank's int8
+    moments, row scales (a max over the group's ranks that hold a row,
+    ``ShardMesh.pmax``) and bf16 second moments, loss and grad norm equal
+    the one-process mesh's for that rank, bit for bit."""
+    _, res = ranks
+    _, opt, metrics = _train_8bit(_one_process(), lambda x: x)
+    for r, out in enumerate(res):
+        gm, gs, gv, gmetrics = out["train/q8"]
+        for got, want in ((gm, opt.m.blocks[r]), (gs, opt.m_scale.blocks[r]),
+                          (gv, opt.v.blocks[r])):
+            assert all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want))), r
+        assert all(torch.equal(a, b) for a, b in zip(gmetrics, metrics)), r
 
 
 def _leaves(tree):
