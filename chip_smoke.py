@@ -192,7 +192,22 @@ Phases, each printing one JSON line or more:
    ``mesh=None`` at ``TRAIN_PARITY_TOL`` (zamba2 also under ZeRO-1 + FSDP);
    16d deepseek-v2 x2 trained two fp32 steps with 8-bit AdamW moments at (2,
    2) against ``mesh=None`` 8-bit (:func:`moments_agreement`).  The kernels
-   16a-d launch are held against their plain versions as 15's are.
+   16a-d launch are held against their plain versions as 15's are;
+17. the dry run (``launch/dryrun.py``: rank 0 of a mesh on the meta
+   device) against the card: 17a one bf16 train step of qwen2-1.5b (28
+   layers, 4 x 1,024) and one bf16 prefill of deepseek-v2 x2 (1 x 512)
+   through ``ShardMesh.from_process_group()`` on one NCCL rank, each with
+   its FLOPs counted by the dry run's counter (``dryrun.StepCounter``) and
+   its peak memory (``max_memory_allocated`` above what was allocated
+   before its inputs), against the dry run of the same cells on
+   ``ShardMesh.abstract(1, 1)``: FLOPs equal, peak within
+   ``DRYRUN_PEAK_TOL``; 17b two production cells of the dry run timed on
+   the host, qwen3-32b ``train_4k`` on 16 x 16 and deepseek-v3-671b
+   ``decode_32k`` on 2 x 16 x 16 (per-rank GB, whether it fits the card,
+   TFLOP a rank, collective GB by kind); 17c the four example modules
+   (``launch/quickstart.py``, ``kernel_path_demo.py``, ``serve_gnn.py``,
+   ``serve_async.py``) at their default sizes on the card, each holding
+   its results against its oracle.
 
 Launch counters are set to 0 before phase 4 and read after phase 5, set to
 0 again before phase 7 and read after it, and likewise around each of
@@ -205,7 +220,9 @@ flash for both models, the grouped FFN for deepseek; in phase 13 the COO
 SpMM on COO tiles and the CSR SpMM on CSR tiles; in phase 14 the CSR
 SpMM and softmax on the process group, flash and the grouped FFN on the
 meshes; in phase 15 flash in each of 15a-d, the grouped FFN in 15c; in
-phase 16 flash in 16a, 16c and 16d, the grouped FFN in 16d).  Then one
+phase 16 flash in 16a, 16c and 16d, the grouped FFN in 16d; in phase 17
+flash in both calibration steps, the grouped FFN in the prefill, the COO
+SpMM and COO softmax in the kernel-path demo, counted around each).  Then one
 ``{"kernels": [...]}`` line (all six,
 launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
@@ -3583,6 +3600,187 @@ def tp_8bit_phase(cfg, dev, calls, *, shape=Q8_SHAPE, seq=Q8_SEQ):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run on the meta device against the card
+# ---------------------------------------------------------------------------
+
+#: the dry run's predicted peak (arguments + temp) within this share of the
+#: measured ``max_memory_allocated`` above the step's base
+DRYRUN_PEAK_TOL = 0.10
+#: 17a's cells: (label, config, dry-run shape name, (seq, batch, kind))
+CALIBRATION = (("qwen2-1.5b", "dense", "cal_train", (1024, 4, "train")),
+               ("deepseek-v2-236b_x2", "moe", "cal_prefill", (512, 1, "prefill")))
+#: 17b's production cells
+PRODUCTION_CELLS = (("qwen3-32b", "train_4k", "single"),
+                    ("deepseek-v3-671b", "decode_32k", "multipod"))
+
+
+def _real_step_inputs(cfg, mesh, shape, dev, gen):
+    """The dry run's arguments of ``shape`` as tensors on ``dev`` for a
+    one-rank mesh: the same blocks (whole leaves), dtypes and specs, params
+    from ``gen``, moments and cache zeros, tokens in the vocabulary."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.steps import maybe_fsdp, opt_state_bits
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, shard_params
+    from repro_torch.optim.adamw import adamw_init
+
+    S, B, kind = SHAPES[shape]
+    tmpl = maybe_fsdp(lm.model_template(cfg))
+    params = shard_params(materialize(gen, tmpl, device=dev), tmpl, mesh)
+    opt = adamw_init(params, opt_state_bits(cfg)) if kind == "train" else None
+    S_tok = S - lm.VLM_PATCHES if cfg.family == "vlm" else S
+    tokens = torch.randint(0, cfg.vocab, (B, 1 if kind == "decode" else S_tok),
+                           generator=gen, device=dev).to(torch.int32)
+    cache = lm.init_cache(cfg, B, S, mesh=mesh) if kind == "decode" else None
+    return params, opt, cache, {"tokens": tokens}
+
+
+def dryrun_calibration_phase(cfgs, dev):
+    """17a: each calibration cell's real step through one NCCL rank,
+    counted and measured, against the dry run of the cell on
+    ``ShardMesh.abstract(1, 1)``.  Returns the kernels' launches by cell."""
+    import gc
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.exchange import ShardMesh
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.moe_dispatch import kernel as GK
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" else dev
+    store = ROOT / "build" / "pg_store_dryrun"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    launches = {}
+    for label, fam, shape, dims in CALIBRATION:
+        SHAPES[shape] = dims
+    dist.init_process_group(backend, store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1,
+                            **({"device_id": dev} if dev.type == "cuda" else {}))
+    try:
+        for label, fam, shape, (S, B, kind) in CALIBRATION:
+            cfg = cfgs[fam]
+            t0 = time.perf_counter()
+            pred = dryrun.run_step(cfg, ShardMesh.abstract(1, 1), shape)
+            dry_s = time.perf_counter() - t0
+            mesh = ShardMesh.from_process_group(device=dev)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params, opt, _, batch = _real_step_inputs(cfg, mesh, shape, dev, gen)
+            args = torch.cuda.memory_allocated() - base
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            FK.reset_launches()
+            GK.reset_launches()
+            counter = dryrun.StepCounter()
+            t0 = time.perf_counter()
+            with counter:
+                if kind == "train":
+                    out = make_train_step(cfg, mesh)(params, opt, batch)
+                else:
+                    out = make_prefill_step(cfg, mesh)(params, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            launches[label] = {**FK.LAUNCHES, **GK.LAUNCHES}
+            result = float(out[2]["loss"] if kind == "train" else out.float().abs().max())
+            mem = pred["memory"]
+            rel = (mem["peak_bytes"] - peak) / peak
+            emit(dict(phase="dryrun_calibration", cell=label, kind=kind, batch=B, seq=S,
+                      predicted_peak_gb=mem["peak_bytes"] / 1e9, measured_peak_gb=peak / 1e9,
+                      peak_rel_err=rel, predicted_args_gb=mem["argument_size_in_bytes"] / 1e9,
+                      measured_args_gb=args / 1e9,
+                      predicted_temp_gb=mem["temp_size_in_bytes"] / 1e9,
+                      predicted_flops=pred["flops"], counted_flops=counter.flops,
+                      kernel_flops={k: v["flops"] for k, v in counter.kernels.items()},
+                      predicted_collectives=pred["collective_counts"],
+                      census=mesh.census()[1], dry_run_s=dry_s, step_s=step_s,
+                      loss_or_max_logit=result, launches=launches[label],
+                      note="one NCCL rank: the real step on the card against the "
+                           "dry run's rank of a (1, 1) mesh on the meta device"))
+            require(counter.flops == pred["flops"],
+                    f"{label}: the card's step counts {counter.flops} FLOPs, the dry run "
+                    f"{pred['flops']}")
+            require(abs(rel) <= DRYRUN_PEAK_TOL,
+                    f"{label}: predicted peak {mem['peak_bytes'] / 1e9:.3f} GB is "
+                    f"{rel:+.1%} of the measured {peak / 1e9:.3f} GB")
+            require(mesh.census() == (pred["collective_bytes"], pred["collective_counts"]),
+                    f"{label}: the group step's census differs from the dry run's")
+            require(math.isfinite(result), f"{label}: non-finite result")
+            del params, opt, batch, counter, out
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+        for _, _, shape, _ in CALIBRATION:
+            SHAPES.pop(shape, None)
+    return launches
+
+
+def dryrun_production_phase():
+    """17b: production cells of the dry run, timed on the host (meta
+    device, no card used)."""
+    from repro_torch.launch import dryrun
+    for arch, shape, mesh_kind in PRODUCTION_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh_kind, force=True, probe=False,
+                              report_dir=ROOT / "build" / "dryrun_torch")
+        require(rec["status"] == "ok", f"dry run of {arch}/{shape}/{mesh_kind}: "
+                f"{rec.get('error')}")
+        mem = rec["memory"]
+        emit(dict(phase="dryrun_production", arch=arch, shape=shape, mesh=mesh_kind,
+                  n_devices=rec["n_devices"], host_s=time.perf_counter() - t0,
+                  rank_gb=(mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 1e9,
+                  argument_gb=mem["argument_size_in_bytes"] / 1e9,
+                  temp_gb=mem["temp_size_in_bytes"] / 1e9, fits=rec["fits"],
+                  fits_budget_gb=rec["fits_budget_bytes"] / 1e9,
+                  fits_budget_of=rec["fits_budget_of"], tflop_rank=rec["flops"] / 1e12,
+                  collective_gb={k: v / 1e9 for k, v in rec["collective_bytes"].items()},
+                  collective_counts=rec["collective_counts"]))
+
+
+def examples_phase():
+    """17c: the four example modules at their default sizes on the card.
+    Returns the tile kernels' launches of the kernel-path demo."""
+    from repro_torch.kernels.tile_spmm import kernel as K
+    from repro_torch.launch import kernel_path_demo, quickstart, serve_async, serve_gnn
+    t0 = time.perf_counter()
+    q = quickstart.main([])
+    emit(dict(phase="example_quickstart", err_tiled=q["err_tiled"],
+              err_pipelined=q["err_pipelined"], limit=q["limit"], wall_s=q["wall_s"],
+              simulator_modelled=q["sim"], seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    K.reset_launches()
+    d = kernel_path_demo.main([])
+    demo = dict(K.LAUNCHES)
+    emit(dict(phase="example_kernel_path_demo", err_spmm=d["err_spmm"], err_gat=d["err_gat"],
+              spmm_s=d["spmm_s"], softmax_s=d["softmax_s"], launches=demo,
+              seconds=time.perf_counter() - t0))
+    for name in ("tile_spmm", "segment_softmax"):
+        require(demo[name] > 0, f"kernel {name} was not launched by the kernel-path demo")
+    t0 = time.perf_counter()
+    g = serve_gnn.main([])
+    emit(dict(phase="example_serve_gnn", err=g["err"], latency_s=g["latency_s"],
+              stats=g["stats"], seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    a = serve_async.main([])
+    emit(dict(phase="example_serve_async", served=a["served"], n=a["n"], err=a["err"],
+              latency_s=a["metrics"]["latency_s"], cache=a["cache"],
+              sheds={k: list(v) for k, v in a["sheds"].items()},
+              seconds=time.perf_counter() - t0))
+    return demo
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3814,6 +4012,21 @@ def main() -> int:
         require(by_cell.get(cell, {}).get("flash_attention", 0) > 0,
                 f"the flash kernel was not launched in {cell}")
     require(by_cell["16d"]["grouped_ffn"] > 0, "the grouped FFN kernel was not launched in 16d")
+
+    # 17. the dry run against the card: the calibration steps through one
+    # NCCL rank (launches counted around each step), two production cells
+    # on the meta device, then the four examples (the tile kernels counted
+    # around the kernel-path demo)
+    t0 = time.perf_counter()
+    cal = dryrun_calibration_phase(lm_cfgs, dev)
+    for label, n in cal.items():
+        require(n["flash_attention"] > 0, f"the flash kernel was not launched in 17a {label}")
+    require(cal["deepseek-v2-236b_x2"]["grouped_ffn"] > 0,
+            "the grouped FFN kernel was not launched in 17a's prefill")
+    dryrun_production_phase()
+    demo = examples_phase()
+    emit(dict(phase="dryrun_and_examples_launches", calibration=cal, kernel_path_demo=demo,
+              seconds=time.perf_counter() - t0))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -21,6 +21,12 @@ backends, with one meaning:
   ``all_to_all_single``, ``all_reduce`` (sum or max), ``reduce_scatter_tensor``).  This is
   the idiom of a mesh that spans hosts (one controller process per host in
   the reference, ``launch/mesh.py``).
+* **an abstract rank** (:meth:`ShardMesh.abstract`): one rank of a mesh
+  that no process holds, on the ``meta`` device, for the dry run
+  (``launch/dryrun.py``).  It takes the group backend's code path, each
+  collective allocating its result as the group's does (a meta tensor of
+  the result's shape), and moves nothing: no ``torch.distributed`` call is
+  made.
 
 Callers loop over :attr:`ShardMesh.local_ranks` (or
 :attr:`ShardMesh.local_shards`): every rank in one process, one under a
@@ -29,6 +35,17 @@ group.  A collective takes one tensor per local rank (per local shard for
 to :attr:`ShardMesh.collectives`, where the reference counts the
 collectives of its compiled HLO.  A float8 payload goes over the wire as
 its ``uint8`` bytes (gloo refuses float8).
+
+Every backend also keeps a census of what the first local rank moves, as
+the reference's ``collective_census`` reads it from the HLO: a count and
+the result bytes of each collective, per device, by kind
+(:data:`KINDS`: ``all-reduce`` for psum / pmean / pmax, ``all-gather``,
+``reduce-scatter``, ``all-to-all``), a backward's transposed collectives
+included (:meth:`ShardMesh.census`).  ``collectives`` counts the calls the
+program makes; under a group a backward's transposes count there too,
+while one process differentiates through its device copies and an
+abstract rank counts its transposes as one process would, in the census
+only.
 
 Autograd passes through :meth:`ShardMesh.psum`, :meth:`~ShardMesh.pmean`,
 :meth:`~ShardMesh.all_gather_axis`, :meth:`~ShardMesh.psum_scatter` and
@@ -65,6 +82,12 @@ Device = Union[str, torch.device]
 AXES = ("shards", "model")
 _ALIASES = {"shards": "shards", "data": "shards", "model": "model"}
 _WIRE = {torch.float8_e4m3fn: torch.uint8, torch.float8_e5m2: torch.uint8}
+#: the reference census's kinds (``collective-permute`` never occurs here)
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def default_devices(device: Optional[Device] = None) -> List[torch.device]:
@@ -130,7 +153,37 @@ class ShardMesh:
         self.devices = devices[:n_shards * model_axis]
         self.local_ranks = list(range(n_shards * model_axis))
         self.group = None
+        self.is_abstract = False
+        self.pods = 1
         self.collectives = 0
+        self.reset_census()
+
+    @classmethod
+    def abstract(cls, n_shards: int, model_axis: int = 1, rank: int = 0,
+                 pods: int = 1, device: Device = "meta") -> "ShardMesh":
+        """Rank ``rank`` of an ``n_shards`` x ``model_axis`` mesh that no
+        process holds, on the ``meta`` device: the dry run's one rank of a
+        production mesh.  It drives only its own rank, as a group's process
+        does; a collective returns a meta tensor of its result's shape and
+        adds to the census.  ``pods`` > 1 splits the shards axis into
+        ``pods`` equal pods, the outer factor (rank ``r``'s pod is ``r //
+        (n_shards / pods * model_axis)``): the reference's ``("pod",
+        "data")`` batch axes flattened pod-major, so every block equals the
+        reference's; it is kept so the census can split cross-pod bytes
+        out later.  On another ``device`` (tests that count its ops on real
+        tensors) a collective's result is zeros, as if every peer held
+        zeros."""
+        if n_shards % pods:
+            raise ValueError(f"{pods} pods do not split {n_shards} shards")
+        if not 0 <= rank < n_shards * model_axis:
+            raise ValueError(f"rank {rank} is not in a mesh of "
+                             f"{n_shards * model_axis} ranks")
+        mesh = cls([torch.device(device)] * (n_shards * model_axis), n_shards, model_axis)
+        mesh.local_ranks = [rank]
+        mesh.rank = rank
+        mesh.is_abstract = True
+        mesh.pods = pods
+        return mesh
 
     @classmethod
     def from_process_group(cls, model_axis: int = 1, group=None,
@@ -170,7 +223,50 @@ class ShardMesh:
                     mesh._axis_groups[axis] = g
         return mesh
 
+    # --------------------------------------------------------------- census
+    def reset_census(self) -> None:
+        self._census_bytes = dict.fromkeys(KINDS, 0)
+        self._census_counts = dict.fromkeys(KINDS, 0)
+
+    def census(self) -> Tuple[Dict[str, int], Dict[str, int]]:
+        """(result bytes, count) of the first local rank's collectives by
+        kind since the last :meth:`reset_census`."""
+        return dict(self._census_bytes), dict(self._census_counts)
+
+    def _record(self, kind: str, nbytes: int) -> None:
+        self._census_bytes[kind] += int(nbytes)
+        self._census_counts[kind] += 1
+
+    def _record_first(self, kind: str, out: Sequence[torch.Tensor],
+                      backward: Optional[str] = None, scale: float = 1.0) -> None:
+        """One process: the census of the first local rank's result
+        ``out[0]``, and, where it records autograd, of the collective its
+        backward would transpose to (``backward``, whose result is
+        ``scale`` x the gradient's bytes)."""
+        self._record(kind, _nbytes(out[0]))
+        if backward is not None and out[0].requires_grad:
+            out[0].register_hook(lambda g: self._record(backward, _nbytes(g) * scale))
+
+    def _transpose(self, fn):
+        """A collective's transpose, for its backward under a group or on an
+        abstract rank: on an abstract rank it adds to the census only."""
+        if not self.is_abstract:
+            return fn
+
+        def quiet(g):
+            n = self.collectives
+            out = fn(g)
+            self.collectives = n
+            return out
+        return quiet
+
     # --------------------------------------------------------------- layout
+    @property
+    def per_rank(self) -> bool:
+        """One process a rank (a group, or an abstract rank): each
+        collective takes and returns this rank's one tensor."""
+        return self.group is not None or self.is_abstract
+
     @property
     def local_shards(self) -> List[int]:
         """The shards this process drives, each once (its rank-0 device
@@ -180,7 +276,7 @@ class ShardMesh:
     def shard_device(self, k: int) -> torch.device:
         """Where shard ``k``'s work runs (its model rank 0's device in one
         process; this rank's device under a group)."""
-        if self.group is not None:
+        if self.per_rank:
             if k not in self.local_shards:
                 raise ValueError(f"shard {k} is not driven by this rank")
             return self.devices[self.rank]
@@ -221,16 +317,21 @@ class ShardMesh:
         if len(bufs) != len(local):
             raise ValueError(f"{len(bufs)} buffers for {len(local)} shards")
         self.collectives += 1
-        if self.group is not None:
+        if self.per_rank:
             if torch.is_grad_enabled() and bufs[0].requires_grad:
                 raise NotImplementedError(
                     "the process-group mesh's shards all_gather is not "
                     "differentiable; run under torch.no_grad()")
             return [self._group_gather_shards(bufs[0])]
+        el = bufs[0].element_size()
         if M == 1:
+            self._record("all-gather", K * bufs[0].numel() * el)
             return self._stack(bufs, [self.shard_device(j) for j in range(K)])
         W = bufs[0].shape[-1]
         wp = -(-W // M)
+        col = bufs[0].numel() // max(W, 1) * wp * K * el
+        self._record("all-gather", col)
+        self._record("all-gather", M * col)
         padded = [torch.nn.functional.pad(b, (0, wp * M - W)) for b in bufs]
         # model rank m of every shard ships its column slice over "shards"
         per_rank = [self._stack(
@@ -267,13 +368,13 @@ class ShardMesh:
         if any(x.shape[0] != n for x in xs):
             raise ValueError(f"all_to_all over {axis!r} needs a leading "
                              f"axis of {n}")
-        if self.group is not None:
+        if self.per_rank:
             def run(x):
                 out = torch.empty_like(x)
-                self._dist(dist.all_to_all_single, out, x.contiguous(), axis)
+                self._dist("all-to-all", dist.all_to_all_single, out, x.contiguous(), axis)
                 return out
-            return [_differentiable(run, lambda g: self.all_to_all([g], axis)[0],
-                                    xs[0])]
+            return [_differentiable(
+                run, self._transpose(lambda g: self.all_to_all([g], axis)[0]), xs[0])]
         dtype = xs[0].dtype
         wire = [x.view(_WIRE[dtype]) for x in xs] if dtype in _WIRE else xs
         out = []
@@ -281,6 +382,7 @@ class ShardMesh:
             i, dev = self.axis_index(r, axis), self.rank_device(r)
             y = torch.stack([self._of(wire, p)[i].to(dev) for p in self._peers(r, axis)])
             out.append(y.view(dtype) if dtype in _WIRE else y)
+        self._record_first("all-to-all", out, "all-to-all")
         return out
 
     def psum(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
@@ -294,9 +396,10 @@ class ShardMesh:
         max of its peers' tensors.  No gradient: it serves the optimizer's
         per-row int8 scales, which nothing differentiates."""
         self._begin(xs, axis)
-        if self.group is not None:
+        if self.per_rank:
             out = xs[0].detach().contiguous().clone()
-            self._dist(partial(dist.all_reduce, op=dist.ReduceOp.MAX), out, None, axis)
+            self._dist("all-reduce", partial(dist.all_reduce, op=dist.ReduceOp.MAX), out,
+                       None, axis)
             return [out]
         built: Dict[Tuple, torch.Tensor] = {}
         out = []
@@ -308,6 +411,7 @@ class ShardMesh:
                     acc = torch.maximum(acc, self._of(xs, p).detach().to(dev))
                 built[peers, dev] = acc
             out.append(built[peers, dev])
+        self._record_first("all-reduce", out)
         return out
 
     def pmean(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
@@ -323,29 +427,32 @@ class ShardMesh:
         n = self._begin(xs, axis)
         if any(x.shape[dim] % n for x in xs):
             raise ValueError(f"dim {dim} does not split over {n} ranks")
-        if self.group is not None:
+        if self.per_rank:
             def run(x):
                 x = x.movedim(dim, 0).contiguous()
                 out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-                self._dist(dist.reduce_scatter_tensor, out, x, axis)
+                self._dist("reduce-scatter", dist.reduce_scatter_tensor, out, x, axis)
                 return out.movedim(0, dim).contiguous()
             return [_differentiable(
-                run, lambda g: self.all_gather_axis([g], axis, dim)[0], xs[0])]
-        return [s.chunk(n, dim)[self.axis_index(r, axis)]
-                for r, s in zip(self.local_ranks, self._sum(xs, axis))]
+                run, self._transpose(lambda g: self.all_gather_axis([g], axis, dim)[0]),
+                xs[0])]
+        out = [s.chunk(n, dim)[self.axis_index(r, axis)]
+               for r, s in zip(self.local_ranks, self._sum(xs, axis, record=False))]
+        self._record_first("reduce-scatter", out, "all-gather", n)
+        return out
 
     def all_gather_axis(self, xs: Sequence[torch.Tensor], axis: str, dim: int
                         ) -> List[torch.Tensor]:
         """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: the peers'
         tensors concatenated along ``dim`` in axis order."""
         n = self._begin(xs, axis)
-        if self.group is not None:
+        if self.per_rank:
             def run(x):
                 x = x.movedim(dim, 0).contiguous()
                 got = self._dist_gather(x, axis)
                 return got.reshape(n * x.shape[0], *x.shape[1:]).movedim(0, dim).contiguous()
             return [_differentiable(
-                run, lambda g: self.psum_scatter([g], axis, dim)[0], xs[0])]
+                run, self._transpose(lambda g: self.psum_scatter([g], axis, dim)[0]), xs[0])]
         built: Dict[Tuple, torch.Tensor] = {}
         out = []
         for r in self.local_ranks:
@@ -354,6 +461,7 @@ class ShardMesh:
                 built[peers, dev] = torch.cat(
                     [self._of(xs, p).to(dev) for p in peers], dim=dim)
             out.append(built[peers, dev].view_as(built[peers, dev]))
+        self._record_first("all-gather", out, "reduce-scatter", 1 / n)
         return out
 
     # -------------------------------------------------------------- helpers
@@ -367,13 +475,15 @@ class ShardMesh:
     def _of(self, xs: Sequence[torch.Tensor], r: int) -> torch.Tensor:
         return xs[self.local_ranks.index(r)]
 
-    def _sum(self, xs: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
-        if self.group is not None:
+    def _sum(self, xs: Sequence[torch.Tensor], axis: str, record: bool = True
+             ) -> List[torch.Tensor]:
+        if self.per_rank:
             def run(x):
                 out = x.contiguous().clone()
-                self._dist(dist.all_reduce, out, None, axis)
+                self._dist("all-reduce", dist.all_reduce, out, None, axis)
                 return out
-            return [_differentiable(run, lambda g: self.psum([g], axis)[0], xs[0])]
+            return [_differentiable(run, self._transpose(lambda g: self.psum([g], axis)[0]),
+                                    xs[0])]
         built: Dict[Tuple, torch.Tensor] = {}
         out = []
         for r in self.local_ranks:
@@ -384,6 +494,8 @@ class ShardMesh:
                     acc = acc + self._of(xs, p).to(dev)
                 built[peers, dev] = acc
             out.append(built[peers, dev].view_as(built[peers, dev]))
+        if record:
+            self._record_first("all-reduce", out, "all-reduce")
         return out
 
     def _dist_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -391,14 +503,20 @@ class ShardMesh:
         subgroup."""
         x = x.contiguous()
         out = x.new_empty((self.axis_size(axis) * x.shape[0], *x.shape[1:]))
-        self._dist(dist.all_gather_into_tensor, out, x, axis)
+        self._dist("all-gather", dist.all_gather_into_tensor, out, x, axis)
         return out
 
-    def _dist(self, call, out: torch.Tensor, x: Optional[torch.Tensor],
+    def _dist(self, kind: str, call, out: torch.Tensor, x: Optional[torch.Tensor],
               axis: str) -> None:
         """``call(out, x, group=<axis subgroup>)`` (``call(out, group=...)``
         when ``x`` is None: an in-place reduction) on the wire dtype's
-        views."""
+        views, counted in the census as ``kind``; an abstract rank makes no
+        call (``out`` is already of the result's shape)."""
+        self._record(kind, _nbytes(out))
+        if self.is_abstract:
+            if out.device.type != "meta":
+                out.zero_()
+            return
         args = [t.view(_WIRE.get(t.dtype, t.dtype)) for t in (out, x)
                 if t is not None]
         call(*args, group=self._axis_groups[_axis(axis)])

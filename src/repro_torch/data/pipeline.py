@@ -8,8 +8,9 @@ counter, not a device generator, so batches are computable on any host):
   trivial;
 * ``shard_for(step, host, n_hosts)`` returns the host's slice.
 
-The arrays equal the reference's bit for bit.  Its ``make_batch_specs``
-(abstract inputs for the multi-pod dry run) has no counterpart yet.
+The arrays equal the reference's bit for bit.  :func:`make_batch_specs`
+gives the abstract inputs of the dry run: one rank's blocks of a cell's
+batch on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import SHAPES, ArchConfig
+from ..models.common import DP, ShardedTree, abstractify, leaf
 from ..models.lm import VLM_PATCHES
 
 
@@ -60,3 +63,23 @@ class TokenPipeline:
         gb = self.global_batch_at(step)
         per = self.global_batch // n_hosts
         return {k: v[host * per:(host + 1) * per] for k, v in gb.items()}
+
+
+def make_batch_specs(cfg: ArchConfig, shape_name: str, mesh,
+                     dtype: torch.dtype = torch.bfloat16) -> ShardedTree:
+    """The batch of one (arch x shape) cell laid out on ``mesh`` with nothing
+    allocated (``models.common.abstractify``): ``tokens`` (B, S) int32 split
+    over the batch axes ((B, 1) for decode; vlm S - 256, after the patches),
+    ``patch_embeds`` (vlm) and ``frames`` (audio) in ``dtype``, the keys,
+    shapes, dtypes and specs of ``repro.data.pipeline.make_batch_specs``."""
+    S, B, kind = SHAPES[shape_name]
+    dt = str(dtype).replace("torch.", "")
+    if kind == "decode":
+        return abstractify({"tokens": leaf((B, 1), (DP, None), dtype="int32")}, mesh)
+    S_tok = S - VLM_PATCHES if cfg.family == "vlm" else S
+    specs = {"tokens": leaf((B, S_tok), (DP, None), dtype="int32")}
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = leaf((B, VLM_PATCHES, cfg.d_model), (DP, None, None), dtype=dt)
+    if cfg.family == "audio":
+        specs["frames"] = leaf((B, cfg.enc_len, cfg.d_model), (DP, None, None), dtype=dt)
+    return abstractify(specs, mesh)

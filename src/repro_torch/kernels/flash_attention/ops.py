@@ -5,7 +5,9 @@ flash_attention`` computes.  CPU tensors take the plain PyTorch version
 (``ref.py``, the reference's scan path as a loop over KV blocks of
 ``block_k``); CUDA tensors launch the hand-written kernel (``kernel.py``,
 64-key tiles whatever ``block_k`` says), which raises rather than falling
-back.
+back.  Meta tensors (the dry run) get the output the CUDA wrapper would
+allocate and run nothing; a step's cost counter credits the kernel's own
+work on every device (``kernels/cost.py``).
 
 It is differentiable (:class:`FlashAttention`, a ``torch.autograd.Function``):
 the forward is the dispatch above, unchanged, and the backward is
@@ -22,18 +24,33 @@ from typing import Optional
 
 import torch
 
+from .. import cost
 from . import kernel as K
 from .ref import _NEG, block_mask, flash_attention_ref, online_softmax
 
 
 def _forward(q, k, v, causal, window, block_k, kv_len):
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   block_k=block_k, kv_len=kv_len)
-    if kv_len is not None:
-        kv_len = kv_len.to(device=q.device, dtype=torch.int32)
-    return K.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal, window=window, kv_len=kv_len)
+    with cost.kernel("flash_attention",
+                     lambda: cost.flash_cost(q, k, v, causal, window, kv_len)):
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       block_k=block_k, kv_len=kv_len)
+        if kv_len is not None:
+            kv_len = kv_len.to(device=q.device, dtype=torch.int32)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.device.type == "meta":
+            return _meta_forward(q, v)
+        return K.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      kv_len=kv_len)
+
+
+def _meta_forward(q, v):
+    """The dry run's stand-in for the kernel on the meta device: the output
+    the CUDA wrapper allocates, of its shape and dtype (the contiguous
+    operands and the int32 ``kv_len`` were made as for the card).  It runs
+    neither the kernel nor the plain version."""
+    B, Sq, H, _ = q.shape
+    return torch.empty((B, Sq, H, v.shape[-1]), dtype=q.dtype, device=q.device)
 
 
 def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,

@@ -8,7 +8,9 @@ fixed-order sum back to tokens (``combine``; the reference's
 ``segment_sum``).  ``grouped_ffn`` takes the plain
 PyTorch version (``ref.py``) for CPU tensors and launches the hand-written
 kernel (``kernel.py``) for CUDA tensors, which raises rather than falling
-back.  All functions are device-local.
+back; meta tensors (the dry run) get what the CUDA wrapper would allocate
+and run nothing, and a step's cost counter credits the kernel's own work
+on every device (``kernels/cost.py``).  All functions are device-local.
 
 Training differentiates them as the reference's ``jax.value_and_grad``
 does its plain path (``use_pallas=False``): ``route``, ``dispatch`` and
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import cost
 from . import kernel as K
 from .ref import grouped_ffn_ref
 
@@ -68,7 +71,10 @@ def route(x, router_w, top_k: int, capacity: int, *, norm_topk: bool = True,
     unsort = torch.empty_like(order)
     unsort[order] = torch.arange(T * top_k, device=x.device)
 
-    counts = torch.bincount(flat_e, minlength=E)
+    # a static-shape count (``bincount``'s output shape depends on the data,
+    # which syncs the host and stops a meta run); the same integers
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     f = counts.float() / max(T * top_k, 1)
     aux = E * torch.sum(f * probs.mean(0))
@@ -105,11 +111,27 @@ def combine(y_buckets, r: Routing, n_tokens: int) -> torch.Tensor:
 
 
 def _forward(buckets, w_gate, w_up, w_down, counts):
-    if buckets.device.type == "cpu":
-        return grouped_ffn_ref(buckets, w_gate, w_up, w_down, counts)
-    return K.grouped_ffn_cuda(buckets.contiguous(), w_gate.contiguous(),
-                              w_up.contiguous(), w_down.contiguous(),
-                              counts.to(device=buckets.device, dtype=torch.int32))
+    with cost.kernel("grouped_ffn",
+                     lambda: cost.grouped_ffn_cost(buckets, w_gate, w_up, w_down, counts)):
+        if buckets.device.type == "cpu":
+            return grouped_ffn_ref(buckets, w_gate, w_up, w_down, counts)
+        args = (buckets.contiguous(), w_gate.contiguous(), w_up.contiguous(),
+                w_down.contiguous(), counts.to(device=buckets.device, dtype=torch.int32))
+        if buckets.device.type == "meta":
+            return _meta_forward(*args)
+        return K.grouped_ffn_cuda(*args)
+
+
+def _meta_forward(buckets, w_gate, w_up, w_down, counts):
+    """The dry run's stand-in for the kernel on the meta device: what the
+    CUDA wrapper allocates, the (E, C, d) output and the (E, C, f) float32
+    activations it hands the two launches.  It runs neither the kernel nor
+    the plain version."""
+    E, C, d = buckets.shape
+    out = torch.empty((E, C, d), dtype=buckets.dtype, device=buckets.device)
+    if out.numel():
+        torch.empty((E, C, w_gate.shape[-1]), dtype=torch.float32, device=buckets.device)
+    return out
 
 
 #: the backward takes experts in groups of at most this many weight elements

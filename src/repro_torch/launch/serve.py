@@ -16,6 +16,8 @@ caches take the templates' dtype (bfloat16).  Runs on ``cuda`` unless
 ``launch/train.py``) serves any of the families laid out by their specs:
 each batch split over data, each process decoding its data shards' rows,
 the KV caches and recurrent states sharded as ``lm.cache_template`` says.
+``--production-mesh`` serves on the 16 x 16 production mesh under
+``torchrun`` (256 processes; ``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -121,13 +123,15 @@ def main(argv=None):
     ap.add_argument("--mesh", default="", help="DATA,MODEL: serve on a mesh")
     ap.add_argument("--devices", default="",
                     help="one process: the mesh's devices, comma-separated")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="serve on the 16 x 16 production mesh (torchrun, 256 ranks)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     dev = resolve(args.device)
-    mesh = build_mesh(args.mesh, args.devices, dev)
+    mesh = build_mesh(args.mesh, args.devices, dev, args.production_mesh)
     if mesh is not None:
         dev = mesh.rank_device(mesh.local_ranks[0])
     dtype = "float32" if args.reduced else None

@@ -3,7 +3,9 @@
 trainer (``train.py``), the serving loop (``serve.py``) and
 ``chip_smoke.py``.  ``mesh=None`` is one device; a
 :class:`~repro_torch.core.exchange.ShardMesh` lays the model out by its
-specs (``models/lm.py``), FSDP and ZeRO-1 under ``runtime_flags.OPT``."""
+specs (``models/lm.py``), FSDP and ZeRO-1 under ``runtime_flags.OPT``.
+:func:`abstract_state` gives one cell's inputs with nothing allocated, for
+the dry run (``launch/dryrun.py``)."""
 from __future__ import annotations
 
 from typing import List
@@ -13,9 +15,10 @@ import torch
 from .. import runtime_flags
 from ..configs.base import ArchConfig
 from ..models import lm
-from ..models.common import (DP, ParamLeaf, ShardedTree, shard_params,
+from ..models.common import (DP, ParamLeaf, ShardedTree, abstractify, shard_params,
                              spec_axes, tree_items, tree_map, tree_unflatten)
-from ..optim.adamw import AdamWState, adamw_update, shard_state, zero1_dim
+from ..optim.adamw import (AdamWState, adamw_state_template, adamw_update, shard_state,
+                           zero1_dim)
 from ..optim.schedule import wsd_schedule
 
 
@@ -63,6 +66,14 @@ def _reduce(mesh, gs: List[torch.Tensor], p_spec, m_spec) -> List[torch.Tensor]:
     return gs
 
 
+def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d leaf for every leaf, zeros for a leaf the loss does not
+    read (command-r's ``ln2`` in its parallel block), as ``jax.grad``
+    gives."""
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for g, t in zip(gs, leaves)]
+
+
 def make_train_step(cfg: ArchConfig, mesh=None, *, peak_lr: float = 3e-4,
                     total_steps: int = 10_000, microbatches: int = 1,
                     accum_dtype: torch.dtype = torch.float32):
@@ -104,7 +115,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, peak_lr: float = 3e-4,
         try:
             if microbatches == 1:
                 lval = lm.loss_fn(cfg, params, batch)
-                flat = list(torch.autograd.grad(lval, leaves))
+                flat = _grads(lval, leaves)
                 lval = lval.detach()
             else:
                 mb = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
@@ -114,7 +125,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, peak_lr: float = 3e-4,
                         for p in leaves]
                 for i in range(microbatches):
                     l = lm.loss_fn(cfg, params, {k: v[i] for k, v in mb.items()})
-                    for a, g in zip(flat, torch.autograd.grad(l, leaves)):
+                    for a, g in zip(flat, _grads(l, leaves)):
                         a.add_(g.to(accum_dtype))
                     lval = lval + l.detach()
                 lval = lval / microbatches
@@ -159,7 +170,7 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, peak_lr, total_steps, microbatche
             for i in range(microbatches):
                 b = batch if microbatches == 1 else micro(batch, i)
                 losses = lm.shard_losses(cfg, sp, b, mesh)
-                got = list(torch.autograd.grad(lm.mesh_objective(losses, mesh), flat))
+                got = _grads(lm.mesh_objective(losses, mesh), flat)
                 n = len(leaves[0])
                 red = []
                 for li in range(n):
@@ -228,3 +239,35 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
         return logits[:, -1], cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (the dry-run contract)
+# ---------------------------------------------------------------------------
+
+def abstract_state(cfg: ArchConfig, mesh, shape_name: str, *, with_opt: bool):
+    """(params, optimizer state or None, cache or None, batch) of one cell
+    on ``mesh``, as ``repro.launch.steps.abstract_state``: every tree a
+    :class:`~repro_torch.models.common.ShardedTree` of ``meta`` blocks
+    (``abstractify``), nothing allocated.  Params by :func:`maybe_fsdp` of
+    the model template; the moments by ``adamw_state_template`` at
+    :func:`opt_state_bits` (8-bit for the huge MoEs; ZeRO-1 under its flag),
+    in an ``AdamWState`` whose ``step`` is the local rank 0's meta scalar;
+    the cache by ``lm.cache_template`` for a decode cell; the batch by
+    ``data.pipeline.make_batch_specs``."""
+    from ..configs.base import SHAPES
+    from ..data.pipeline import make_batch_specs
+
+    S, B, kind = SHAPES[shape_name]
+    tmpl = maybe_fsdp(lm.model_template(cfg))
+    params = abstractify(tmpl, mesh)
+    opt = None
+    if with_opt:
+        ot = adamw_state_template(tmpl, state_bits=opt_state_bits(cfg))
+        step = abstractify({"step": ot["step"]}, mesh).blocks[0]["step"]
+        opt = AdamWState(step=step, m=abstractify(ot["m"], mesh), v=abstractify(ot["v"], mesh),
+                         m_scale=None if ot["m_scale"] is None
+                         else abstractify(ot["m_scale"], mesh),
+                         v_scale=None)
+    cache = abstractify(lm.cache_template(cfg, B, S), mesh) if kind == "decode" else None
+    return params, opt, cache, make_batch_specs(cfg, shape_name, mesh)

@@ -25,8 +25,10 @@ once holds logical ranks; a list is never repeated silently):
       --devices cuda:0,cuda:0,cuda:0,cuda:0
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-1.5b --mesh 2,2
 
-The reference's ``--production-mesh`` (a TPU pod mesh) waits for the
-meta-device dry run (ROADMAP A.10).
+``--production-mesh`` trains on the reference's 16 x 16 production mesh:
+under ``torchrun`` with 256 processes (``launch/mesh.py``; it raises on
+any other world).  What one rank of it holds and does is what the dry run
+reports without a card (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from ..device import resolve
 from ..models import lm
 from ..models.common import materialize, shard_params
 from ..optim.adamw import adamw_init
+from .mesh import make_production_mesh
 from .steps import make_train_step, maybe_fsdp, opt_state_bits
 
 
@@ -54,10 +57,22 @@ def batch_tensors(batch, dev: torch.device):
             else torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
-def build_mesh(shape: str, devices: str, dev: torch.device):
+def build_mesh(shape: str, devices: str, dev: torch.device, production: bool = False):
     """The ``--mesh DATA,MODEL`` mesh: over the ``torchrun`` group when one
     launched this process (initialized here from its environment), else
-    over ``--devices``; None without ``--mesh``."""
+    over ``--devices``; None without ``--mesh``.  ``production``
+    (``--production-mesh``): the 16 x 16 production mesh over the
+    ``torchrun`` group (``launch.mesh.make_production_mesh``), which needs
+    256 processes."""
+    if production:
+        if shape:
+            raise ValueError("--production-mesh and --mesh exclude each other")
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError("--production-mesh runs under torchrun, one process a rank "
+                             "of the 16 x 16 mesh")
+        if not dist.is_initialized():
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        return make_production_mesh()
     if not shape:
         return None
     n_data, n_model = (int(v) for v in shape.split(","))
@@ -89,13 +104,15 @@ def main(argv=None):
     ap.add_argument("--mesh", default="", help="DATA,MODEL: train on a mesh")
     ap.add_argument("--devices", default="",
                     help="one process: the mesh's devices, comma-separated")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="train on the 16 x 16 production mesh (torchrun, 256 ranks)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     dev = resolve(args.device)
-    mesh = build_mesh(args.mesh, args.devices, dev)
+    mesh = build_mesh(args.mesh, args.devices, dev, args.production_mesh)
     if mesh is not None:
         dev = mesh.rank_device(mesh.local_ranks[0])
     host, n_hosts = (0, 1) if mesh is None or mesh.group is None else \

@@ -17,7 +17,8 @@ axis that does not divide its dimension is dropped (:func:`sanitize_spec`).
 ``NamedSharding`` placement: each local rank gets the block of every leaf
 that its spec names, in a :class:`ShardedTree`; :func:`unshard_params`
 undoes it, and :func:`shard_hint` checks or moves an activation to a
-spec's layout.
+spec's layout.  :func:`abstractify` lays a template out with nothing
+allocated (``meta`` blocks), for the dry run.
 """
 from __future__ import annotations
 
@@ -281,6 +282,27 @@ def shard_zeros(template, mesh, dtype_override: Optional[str] = None) -> Sharded
                                          zip(tree_items(template), tree_items(specs))])
 
     return ShardedTree(mesh, template, specs, [block(r) for r in mesh.local_ranks])
+
+
+def abstractify(tree, mesh, dtype_override: Optional[str] = None) -> ShardedTree:
+    """A template tree laid out on ``mesh`` with nothing allocated: each
+    local rank's block of every leaf as a ``meta`` tensor of the block's
+    shape (``block_slices`` of the leaf's resolved, sanitized spec) in the
+    leaf's dtype (or ``dtype_override``), as the reference's
+    ``abstractify`` gives ``ShapeDtypeStruct`` s with a ``NamedSharding``.
+    The :class:`ShardedTree` carries each leaf's global shape (its
+    template) and spec."""
+    specs = tree_map(lambda l: leaf_spec(l, mesh), tree)
+
+    def block(r):
+        def one(l: ParamLeaf, sp):
+            shape = [s.stop - s.start for s in block_slices(sp, l.shape, mesh, r)]
+            return torch.empty(shape, dtype=torch_dtype(dtype_override or l.dtype),
+                               device="meta")
+        return tree_unflatten(tree, [one(l, sp) for (_, l), (_, sp) in
+                                     zip(tree_items(tree), tree_items(specs))])
+
+    return ShardedTree(mesh, tree, specs, [block(r) for r in mesh.local_ranks])
 
 
 def unshard_params(sp: ShardedTree) -> Dict:

@@ -65,6 +65,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import runtime_flags
 from ..configs.base import ArchConfig
 from . import attention as A
 from . import mamba2 as M2
@@ -84,6 +85,34 @@ VLM_PATCHES = 256  # stub vision prefix length for the vlm family
 def _require_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown LM family {cfg.family!r}")
+
+
+def layer_stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
+    """Real trip count of each layer stack — the dry run extrapolates its
+    probes' costs with these (``repro.models.lm.layer_stack_sizes``)."""
+    if cfg.family in ("dense", "vlm"):
+        return {"layers": cfg.n_layers}
+    if cfg.family == "moe":
+        d = {"layers": cfg.n_layers - cfg.moe.first_dense}
+        if cfg.moe.first_dense:
+            d["dense_layers"] = cfg.moe.first_dense
+        return d
+    if cfg.family == "audio":
+        return {"layers": cfg.n_layers, "enc_layers": cfg.n_encoder_layers}
+    if cfg.family == "ssm":
+        return {"layers": cfg.n_layers // cfg.xlstm.slstm_every}
+    if cfg.family == "hybrid":
+        return {"layers": cfg.n_layers // cfg.shared_attn_every}
+    raise ValueError(cfg.family)
+
+
+def stack_range(name: str, n: int) -> range:
+    """The layers a loop over stack ``name`` (of ``n``) runs: every one, or
+    while the dry run probes (``runtime_flags.PROBE["stack_counts"]``) the
+    first count it names for the stack (1 where it names none), as the
+    reference's ``scan_blocks``."""
+    stacks = runtime_flags.probe_stacks()
+    return range(n if stacks is None else min(n, stacks.get(name, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +464,7 @@ def _encode(cfg, sp: ShardedTree, frames):
             for e in encs]
     positions = torch.arange(T, device=encs[0].device)
     stack = sp.sub("enc_layers")
-    for i in range(stack.n_layers()):
+    for i in stack_range("enc_layers", stack.n_layers()):
         encs = _remat(partial(_whisper_block, cfg, causal=False), stack.layer(i), encs,
                       positions)
     return _lns(encs, sp.sub("ln_enc"), cfg.norm_eps)
@@ -465,11 +494,11 @@ def _one_body_hidden(cfg: ArchConfig, sp: ShardedTree, batch, mesh):
         encs = _encode(cfg, sp, _rows(batch["frames"], mesh))
         xs = [x + sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)
               for x in xs]
-        for i in range(stack.n_layers()):
+        for i in stack_range("layers", stack.n_layers()):
             xs = _remat(partial(_whisper_block, cfg, encs=encs), stack.layer(i), xs,
                         positions)
         return _lns(xs, sp.sub("ln_f"), eps)
-    for i in range(stack.n_layers()):
+    for i in stack_range("layers", stack.n_layers()):
         xs = (_remat(partial(_xlstm_super, cfg), stack.layer(i), xs) if cfg.family == "ssm"
               else _remat(partial(_zamba_super, cfg), stack.layer(i), sp.sub("shared"), xs,
                           positions))
@@ -487,13 +516,13 @@ def _one_body_decode(cfg: ArchConfig, sp: ShardedTree, cache, tokens, pos: int, 
         max_len = cl.template["k"].shape[2]
         xs = [x + sinusoidal_positions(max_len, cfg.d_model)[pos].to(x.device, x.dtype)
               for x in xs]
-        for i in range(stack.n_layers()):
+        for i in stack_range("layers", stack.n_layers()):
             xs = _whisper_block(cfg, stack.layer(i), xs, positions, cache=cl.layer(i),
                                 cross=ct.sub("cross").layer(i), pos=pos)
         hs = _lns(xs, sp.sub("ln_f"), eps)
     elif cfg.family == "ssm":
         _promote_states(ct)
-        for i in range(stack.n_layers()):
+        for i in stack_range("layers", stack.n_layers()):
             xs = _xlstm_super(cfg, stack.layer(i), xs, cl.layer(i))
         hs = _rms(xs, sp, "ln_f", eps)
     else:
@@ -503,7 +532,7 @@ def _one_body_decode(cfg: ArchConfig, sp: ShardedTree, cache, tokens, pos: int, 
         # in the reference (ROADMAP C.3)
         wpos = pos % ct.sub("shared").template["k"].shape[2]
         _promote_states(ct)
-        for i in range(stack.n_layers()):
+        for i in stack_range("layers", stack.n_layers()):
             xs = _zamba_super(cfg, stack.layer(i), sp.sub("shared"), xs, positions,
                               cl.layer(i), ct.sub("shared").layer(i), wpos)
         hs = _rms(xs, sp, "ln_f", eps)
@@ -760,7 +789,7 @@ def hidden_mesh(cfg: ArchConfig, sp: ShardedTree, batch, mesh):
     aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
     for name, kind in _stacks(cfg, sp):
         stack = sp.sub(name)
-        for i in range(stack.n_layers()):
+        for i in stack_range(name, stack.n_layers()):
             if cfg.family == "moe":
                 xs, a = _remat(partial(_mla_block_mesh, cfg, kind, mesh, split=split),
                                stack.layer(i), xs, positions)
@@ -822,7 +851,7 @@ def _decode_mesh(cfg: ArchConfig, sp: ShardedTree, cache, tokens, pos: int, mesh
     positions = pos + torch.arange(tokens.shape[1], device=xs[0].device)
     for name, kind in _stacks(cfg, sp):
         stack, cstack = sp.sub(name), cache.sub(name)
-        for i in range(stack.n_layers()):
+        for i in stack_range(name, stack.n_layers()):
             if cfg.family == "moe":
                 xs, _ = _mla_block_mesh(cfg, kind, mesh, stack.layer(i), xs, positions,
                                         cstack.layer(i), pos, token_chunks=1,

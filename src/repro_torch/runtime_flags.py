@@ -11,6 +11,14 @@ the real (scanned) compile.
   PROBE["stack_counts"]: None, or {stack_name: n_layers_to_trace}
   PROBE["unroll"]:       unroll inner scans (flash kv blocks, ssm chunks,
                          MoE token chunks) so their FLOPs are visible.
+
+In the port (``repro_torch``) the dry run runs the eager step on the meta
+device (``launch/dryrun.py``) and counts every dispatched op, so nothing is
+hidden in a loop.  ``PROBE["stack_counts"]`` is honoured all the same: the
+layer loops that a mesh runs (``models/lm.py``) take the first n layers of
+each named stack, and the MoE routes its tokens in one chunk, so the dry
+run's 1- and 2-layer probes cost seconds where the full step costs minutes.
+``PROBE["unroll"]`` is a no-op: every inner loop is already a Python loop.
 """
 from typing import Dict, Optional
 

@@ -96,12 +96,29 @@ COPIED = (
 )
 
 
+# copies whose module docstring says what the module means in the port
+OWN_DOCSTRING = ("runtime_flags.py",)
+
+
+def _without_docstring(text: str) -> str:
+    import ast
+    doc = ast.get_docstring(ast.parse(text), clean=False)
+    start = text.index('"""')
+    end = text.index('"""', start + 3) + 3
+    assert doc is not None and text[start + 3:end - 3] == doc
+    return text[:start] + text[end:]
+
+
 @pytest.mark.parametrize("path", COPIED)
 def test_copied_modules_equal_the_reference(path):
-    """A copy differs from the reference only in the package name."""
-    port = (ROOT / "src" / "repro_torch" / path).read_text()
+    """A copy differs from the reference only in the package name (and,
+    for ``OWN_DOCSTRING``, in its module docstring, which says what the
+    module means in the port: the code stays byte for byte the same)."""
+    port = (ROOT / "src" / "repro_torch" / path).read_text().replace("repro_torch", "repro")
     ref = (ROOT / "src" / "repro" / path).read_text()
-    assert port.replace("repro_torch", "repro") == ref
+    if path in OWN_DOCSTRING:
+        port, ref = _without_docstring(port), _without_docstring(ref)
+    assert port == ref
 
 
 def test_analysis_sweep_matches_reference():
