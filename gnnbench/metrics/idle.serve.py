@@ -1,0 +1,6 @@
+"""Percent of the traced serving window with no device operation running."""
+from gnnbench.roofline import idle_share
+
+
+def read(reading):
+    return idle_share(reading)
