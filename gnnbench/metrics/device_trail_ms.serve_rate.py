@@ -1,0 +1,5 @@
+"""``device_trail_ms.serve``, read in the serving cells whose end-to-end metric is
+the served rate."""
+from gnnbench.cell import HERE, import_file
+
+read = import_file(HERE / "metrics" / "device_trail_ms.serve.py").read

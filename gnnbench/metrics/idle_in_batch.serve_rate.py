@@ -1,0 +1,5 @@
+"""``idle_in_batch.serve``, read in the serving cells whose end-to-end metric is
+the served rate."""
+from gnnbench.cell import HERE, import_file
+
+read = import_file(HERE / "metrics" / "idle_in_batch.serve.py").read

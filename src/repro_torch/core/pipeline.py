@@ -27,6 +27,15 @@ rebind another same-signature tile set without rebuilding.
 
 ``tiles`` may be a :class:`~repro_torch.core.tiling.TileSet` or a
 :class:`~repro_torch.core.tiling.BucketedTileSet`.
+
+While the recorder (:mod:`repro_torch.spans`) is on, a
+:class:`PipelinedRunner` records ``runner.bind`` (child ``runner.plan``
+around the edge plans and the COO densify) and ``runner.run`` (the host's
+enqueue of the interpreter), and counts the host arrays it uploads
+(``runner.h2d_bytes`` / ``runner.h2d_tensors``) and, each run, the source
+rows its batches compute over (``runner.src_rows_padded``: T x S_max of
+each batch; ``runner.src_rows_real``: the tiles' ``n_src``) against the
+graph's vertices (``runner.vertices``).
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import torch
 
 from . import compiler as C
 from . import schedule as S
+from .. import spans
 from ..convert import to_device
 from ..device import resolve
 from ..gnn.graphs import Graph
@@ -65,9 +75,17 @@ def _padded_partition_ids(tiles) -> Tuple[np.ndarray, int]:
     return ids, dmax
 
 
+def _upload(arr, device, dtype=None) -> Array:
+    """Host array ``arr`` as a tensor on ``device``, counted."""
+    t = torch.as_tensor(arr, dtype=dtype, device=device)
+    spans.count("runner.h2d_bytes", t.nbytes)
+    spans.count("runner.h2d_tensors")
+    return t
+
+
 def _tile_arrays(ts: TileSet, device: torch.device) -> Dict[str, Array]:
     """Per-tile index arrays as int64 tensors (indexing operands)."""
-    return {k: torch.as_tensor(getattr(ts, k), device=device).long()
+    return {k: _upload(getattr(ts, k), device).long()
             for k in ("src_ids", "edge_src", "edge_dst", "edge_gid", "n_src",
                       "n_edge", "part_id", "part_start")}
 
@@ -76,7 +94,7 @@ def _perm_operand(reordering, device) -> Optional[Dict[str, Array]]:
     """(order, rank) tensors; ``None`` for the identity."""
     if reordering is None or reordering.is_identity:
         return None
-    return {k: torch.as_tensor(getattr(reordering, k), device=device).long()
+    return {k: _upload(getattr(reordering, k), device).long()
             for k in ("order", "rank")}
 
 
@@ -99,17 +117,13 @@ def tile_const(ts: TileSet, n_parts: int, device) -> Dict[str, Array]:
     ``part_ptr`` comes from the host array, so no launch syncs on it."""
     check_partition_major(ts.part_id)
     kc = dict(
-        part_id=torch.as_tensor(ts.part_id, dtype=torch.int32, device=device),
-        part_ptr=torch.as_tensor(partition_ptr(ts.part_id, n_parts),
-                                 device=device),
-        flags=torch.as_tensor(tile_flags(ts.part_id), device=device),
-        pmask=torch.as_tensor(np.isin(np.arange(n_parts), ts.part_id),
-                              device=device))
+        part_id=_upload(ts.part_id, device, torch.int32),
+        part_ptr=_upload(partition_ptr(ts.part_id, n_parts), device),
+        flags=_upload(tile_flags(ts.part_id), device),
+        pmask=_upload(np.isin(np.arange(n_parts), ts.part_id), device))
     if ts.layout == "csr":
-        kc["row_ptr"] = torch.as_tensor(ts.row_ptr, dtype=torch.int32,
-                                        device=device)
-        kc["col"] = torch.as_tensor(ts.edge_src, dtype=torch.int32,
-                                    device=device)
+        kc["row_ptr"] = _upload(ts.row_ptr, device, torch.int32)
+        kc["col"] = _upload(ts.edge_src, device, torch.int32)
     return kc
 
 
@@ -119,15 +133,13 @@ def softmax_const(ts: TileSet, n_parts: int, dmax: int,
     the int32 edge lists and the batch's edge plan (built on the device,
     with the plan's host syncs)."""
     kc = tile_const(ts, n_parts, device)
-    kc["col"] = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=device)
+    kc["col"] = _upload(ts.edge_src, device, torch.int32)
     if ts.layout == "csr":
         kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"], n_parts,
                               ts.edge_src.shape[1])
     else:
-        kc["edge_dst"] = torch.as_tensor(ts.edge_dst, dtype=torch.int32,
-                                         device=device)
-        kc["n_edge"] = torch.as_tensor(ts.n_edge, dtype=torch.int32,
-                                       device=device)
+        kc["edge_dst"] = _upload(ts.edge_dst, device, torch.int32)
+        kc["n_edge"] = _upload(ts.n_edge, device, torch.int32)
         kc["plan"] = coo_plan(kc["edge_dst"], kc["n_edge"], kc["part_id"],
                               n_parts, dmax)
     return kc
@@ -476,41 +488,51 @@ class PipelinedRunner:
         """(program, tile-set) structural identity this runner serves."""
         return self._signature
 
-    def jit_cache_size(self) -> int:
-        """Number of builds behind this runner: always 1, since execution
-        is eager and a rebind never rebuilds (the reference runner counts
-        its XLA compilations here)."""
-        return 1
-
     # ------------------------------------------------------------------ bind
     def bind(self, tiles, reordering=None) -> Tuple:
         """Device operands (tile arrays + kernel constants + permutation) for
         a tile set structurally identical to the construction one — the
         per-request rebind step the serving cache runs instead of a
-        rebuild.  ``reordering`` must realize the runner's reorder mode."""
+        rebuild.  ``reordering`` must realize the runner's reorder mode.
+        The last operand counts the source rows a run computes over:
+        (T x S_max, sum of ``n_src``) summed over the batches that run."""
         if tiles.shape_signature() != self.tiles.shape_signature():
             raise ValueError(
                 "tile set is not structurally identical to this runner's: "
                 f"{tiles.shape_signature()} != {self.tiles.shape_signature()}")
         _check_reorder_mode(self.reorder_mode, reordering)
+        with spans.span("runner.bind"):
+            return self._bind(tiles, reordering)
+
+    def _bind(self, tiles, reordering) -> Tuple:
         buckets: List[TileSet] = (
             list(tiles.buckets) if isinstance(tiles, BucketedTileSet) else [tiles])
         tas = tuple(_tile_arrays(b, self.device) for b in buckets)
         if self._kernels & {S.KERNEL_SPMM, S.KERNEL_SPMM_WEIGHTED}:
             P, with_adj = self.tiles.n_dst_parts, S.KERNEL_SPMM in self._kernels
-            kcs = tuple(bucket_const(b, ta, with_adj, P, self.dmax, self.device)
-                        for b, ta in zip(buckets, tas))
+            with spans.span("runner.plan"):
+                kcs = tuple(bucket_const(b, ta, with_adj, P, self.dmax,
+                                         self.device)
+                            for b, ta in zip(buckets, tas))
         else:
             kcs = tuple({} for _ in buckets)
+        # the source blocks a run computes over: every bucket's, for the
+        # SpMM and scan gathers, and the softmax batch's
+        ran = buckets if self._kernels - {S.KERNEL_SEGMENT_SOFTMAX} else []
         # the online-softmax state cannot be merged across buckets, so the
         # segment-softmax block always runs over the unbucketed tile batch
         ta0 = kc0 = None
         if S.KERNEL_SEGMENT_SOFTMAX in self._kernels:
             st = tiles.source if isinstance(tiles, BucketedTileSet) else tiles
             ta0 = _tile_arrays(st, self.device)
-            kc0 = softmax_const(st, self.tiles.n_dst_parts, self.dmax,
-                                self.device)
-        return (tas, kcs, ta0, kc0, _perm_operand(reordering, self.device))
+            with spans.span("runner.plan"):
+                kc0 = softmax_const(st, self.tiles.n_dst_parts, self.dmax,
+                                    self.device)
+            ran = ran + [st]
+        rows = (sum(b.src_ids.size for b in ran),
+                sum(int(b.n_src.sum()) for b in ran))
+        return (tas, kcs, ta0, kc0, _perm_operand(reordering, self.device),
+                rows)
 
     # ------------------------------------------------------------------ run
     def __call__(self, inputs: Dict, params: Dict,
@@ -521,7 +543,12 @@ class PipelinedRunner:
             operands = self._operands
         inputs = {k: to_device(v, self.device) for k, v in inputs.items()}
         params = {k: to_device(v, self.device) for k, v in params.items()}
-        return self._run(inputs, params, *operands)
+        *ops, (padded, real) = operands
+        with spans.span("runner.run"):
+            spans.count("runner.src_rows_padded", padded)
+            spans.count("runner.src_rows_real", real)
+            spans.count("runner.vertices", self.graph.n_vertices)
+            return self._run(inputs, params, *ops)
 
     def run_with(self, tiles, inputs: Dict, params: Dict,
                  reordering=None) -> List[Array]:
@@ -958,11 +985,6 @@ class ShardedRunner:
         includes ``n_devices`` so a serving cache can never alias a sharded
         program with a single-device one (or across mesh sizes)."""
         return self._signature
-
-    def jit_cache_size(self) -> int:
-        """Number of builds behind this runner: always 1 (execution is
-        eager and a rebind never rebuilds)."""
-        return 1
 
     def _publish_ids(self) -> set:
         """Vertex node ids whose values must be exchanged into the

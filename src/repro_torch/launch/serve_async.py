@@ -18,7 +18,9 @@ async tier (``serve.AsyncInferenceServer``):
      ``Overloaded`` results under both shed policies;
   5. print the metrics snapshot (p50 / p99 latency, batch fill, sheds).
 
-Latencies are wall-clock on the device the engines run on.  Runs on
+Latencies are the server's: wall clock from submit until a batch's
+outputs are enqueued on the device, not until the device has computed
+them.  Runs on
 ``cuda`` unless ``--device`` names another device.
 """
 from __future__ import annotations
@@ -97,7 +99,8 @@ def main(argv=None) -> dict:
               f"last output {None if last is None else tuple(last.shape)}")
 
         snap = srv.stats()["metrics"]
-        print(f"latency p50/p99: {snap['latency_s']['p50'] * 1e3:.1f}/"
+        print(f"latency to outputs enqueued p50/p99: "
+              f"{snap['latency_s']['p50'] * 1e3:.1f}/"
               f"{snap['latency_s']['p99'] * 1e3:.1f} ms, "
               f"mean batch fill {snap['batch_fill']['mean']:.2f}, sheds {snap['shed']}")
         cache = srv.stats()["cache"]

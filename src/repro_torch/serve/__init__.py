@@ -13,10 +13,12 @@ Layers:
 * :mod:`repro_torch.serve.server` — :class:`AsyncInferenceServer`, the
   async tier: per-request deadlines, continuous batching by size class,
   admission control with structured :class:`Overloaded` shedding,
-  background warmup, multi-tenant cache budgets (copy of the reference's;
-  ``device=`` reaches each engine through ``register_model``).
+  background warmup, multi-tenant cache budgets (the reference's, with
+  the port's spans and clock from :mod:`repro_torch.spans`; ``device=``
+  reaches each engine through ``register_model``).
 * :mod:`repro_torch.serve.metrics` — :class:`ServeMetrics`, p50/p99
-  latency, queue depth, batch fill, shed counts (copy of the reference's).
+  latency, queue depth, batch fill, shed counts (the reference's, its
+  latency documented as ending with the outputs enqueued).
 """
 from .cache import CacheStats, ProgramCache  # noqa: F401
 from .engine import InferenceServer  # noqa: F401

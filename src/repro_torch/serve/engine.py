@@ -16,6 +16,12 @@ ScheduledProgram execution per size class:
    :class:`~repro_torch.core.pipeline.ShardedRunner`) via ``run_with``
    (rebind tile operands, no rebuild);
 4. merged outputs are sliced back into per-graph tensors on the device.
+
+While the recorder (:mod:`repro_torch.spans`) is on, a group records
+``engine.merge``, ``engine.tile`` (child ``engine.tile_wait``, the wait
+for the shape registry's lock), ``engine.inputs`` (with the counters
+``engine.h2d_bytes`` / ``engine.h2d_tensors``) and ``engine.cache``; the
+runner records its own.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import spans
 from ..convert import params_from_reference, to_device
 from ..core import compiler as C
 from ..core import schedule as S
@@ -238,7 +245,8 @@ class InferenceServer:
     # ------------------------------------------------------------ internals
     def _run_group(self, graphs: List[Graph], inputs: List[Dict],
                    params: Dict[str, torch.Tensor]) -> List[List[torch.Tensor]]:
-        batch = batch_graphs(graphs)
+        with spans.span("engine.merge"):
+            batch = batch_graphs(graphs)
         # class keys carry the program identity (name + layer count) so
         # registrations of different programs never alias
         class_key = (self.compiled.name, self.compiled.n_layers,
@@ -253,24 +261,35 @@ class InferenceServer:
             # tile batch; the registration key carries the config so default
             # and tuned canonical shapes of one class never alias
             tuned_key = ("tuned",) + tuned.key()
-            merged_graph, tiles, E_pad, ro = self.shapes.canonical(
-                class_key + (tuned_key,), batch.graph,
+            shape_key, tiling = class_key + (tuned_key,), dict(
                 grid=(tuned.n_dst_parts, tuned.n_src_parts),
                 reorder=tuned.reorder, layout=tuned.layout,
                 n_buckets=tuned.n_buckets)
         else:
-            tuned_key = ()
-            merged_graph, tiles, E_pad, ro = self.shapes.canonical(
-                class_key, batch.graph)
+            tuned_key, shape_key, tiling = (), class_key, {}
+        with spans.span("engine.tile"):
+            # the registry's lock (reentrant) taken here first, so that the
+            # wait for it is a span of its own; canonical re-enters it
+            with spans.span("engine.tile_wait"):
+                self.shapes._lock.acquire()
+            try:
+                merged_graph, tiles, E_pad, ro = self.shapes.canonical(
+                    shape_key, batch.graph, **tiling)
+            finally:
+                self.shapes._lock.release()
         V_pad = merged_graph.n_vertices
 
         merged_inputs: Dict[str, torch.Tensor] = {}
-        for rows, space in ((V_pad, self.sp.vertex_inputs),
-                            (E_pad, self.sp.edge_inputs)):
-            for _, name in space:
-                merged_inputs[name] = to_device(_pad_rows(np.concatenate(
-                    [np.asarray(inp[name]) for inp in inputs]), rows),
-                    self.device)
+        with spans.span("engine.inputs"):
+            for rows, space in ((V_pad, self.sp.vertex_inputs),
+                                (E_pad, self.sp.edge_inputs)):
+                for _, name in space:
+                    t = to_device(_pad_rows(np.concatenate(
+                        [np.asarray(inp[name]) for inp in inputs]), rows),
+                        self.device)
+                    spans.count("engine.h2d_bytes", t.nbytes)
+                    spans.count("engine.h2d_tensors")
+                    merged_inputs[name] = t
 
         n_dev = (self.shard_devices
                  if self.shard_devices and self.shard_devices > 1
@@ -293,27 +312,29 @@ class InferenceServer:
                                        kernels=self._kernel_tags,
                                        model_axis=self.shard_model_axis),
                 tuned_key)
-            runner = self.cache.get_or_build(
-                key, lambda: ShardedRunner(self.compiled, ro.graph, tiles,
-                                           n_dev, mode="contiguous",
-                                           quantize_tile_cap=True,
-                                           devices=self.shard_mesh_devices,
-                                           kernel_dispatch=self.kernel_dispatch,
-                                           reordering=ro,
-                                           model_axis=self.shard_model_axis,
-                                           device=self.device),
-                owner=self.cache_owner)
-            with self._stats_lock:
-                self._sharded_batches += 1
+
+            def build():
+                return ShardedRunner(self.compiled, ro.graph, tiles, n_dev,
+                                     mode="contiguous", quantize_tile_cap=True,
+                                     devices=self.shard_mesh_devices,
+                                     kernel_dispatch=self.kernel_dispatch,
+                                     reordering=ro,
+                                     model_axis=self.shard_model_axis,
+                                     device=self.device)
         else:
             key = structure_signature(self.compiled, tiles, E_pad,
                                       self.kernel_dispatch,
                                       reorder=ro.mode) + (tuned_key,)
-            runner = self.cache.get_or_build(
-                key, lambda: PipelinedRunner(self.compiled, ro.graph, tiles,
-                                             kernel_dispatch=self.kernel_dispatch,
-                                             reordering=ro, device=self.device),
-                owner=self.cache_owner)
+
+            def build():
+                return PipelinedRunner(self.compiled, ro.graph, tiles,
+                                       kernel_dispatch=self.kernel_dispatch,
+                                       reordering=ro, device=self.device)
+        with spans.span("engine.cache"):
+            runner = self.cache.get_or_build(key, build, owner=self.cache_owner)
+        if n_dev > 1:
+            with self._stats_lock:
+                self._sharded_batches += 1
         with torch.inference_mode():    # serving records no autograd graph
             outs = runner.run_with(tiles, merged_inputs, params, reordering=ro)
         with self._stats_lock:

@@ -3,15 +3,18 @@
 Every number the async tier reports flows through one thread-safe
 :class:`ServeMetrics` registry so the scheduler, the worker pool, and the
 warmup thread never hand-roll their own counters.  The registry is cheap to
-update on the hot path (a lock + ring-buffer append), snapshots to a plain
-JSON-able dict (:meth:`ServeMetrics.snapshot`), and is what
-``benchmarks/bench_serving_async.py`` asserts against and exports to
-``reports/bench_serving_async.json``.
+update on the hot path (a lock + ring-buffer append) and snapshots to a
+plain JSON-able dict (:meth:`ServeMetrics.snapshot`).  It is the
+operator's aggregate view; the spans under it (one a request and a batch,
+and the engine's and runner's stages) are :mod:`repro_torch.spans`', on
+the same stamps.
 
 Metric families (glossary lives in ``docs/SERVING.md``):
 
-* **latency** — end-to-end seconds from ``submit`` to ticket resolution,
-  reported as p50/p99/mean/max over a bounded reservoir;
+* **latency** — seconds from ``submit`` to ticket resolution, which comes
+  when the batch's outputs are enqueued on the device, not computed (the
+  device's part is not in it), reported as p50/p99/mean/max over a
+  bounded reservoir;
 * **queue depth** — pending requests sampled at every enqueue/dequeue;
 * **batch fill** — realized batch size over the class cap per dispatched
   batch (1.0 = the scheduler always filled to the cap);
@@ -106,7 +109,7 @@ class ServeMetrics:
     def __init__(self, window: int = 4096):
         """Create an empty registry; ``window`` bounds each histogram."""
         self._lock = threading.Lock()
-        self.latency = Histogram(window)          # end-to-end seconds
+        self.latency = Histogram(window)          # submit -> outputs enqueued
         self.queue_wait = Histogram(window)       # enqueue -> dispatch seconds
         self.batch_fill = Histogram(window)       # realized / cap per batch
         self.queue_depth = Histogram(window)      # depth sampled on transitions
@@ -138,7 +141,8 @@ class ServeMetrics:
 
     def on_complete(self, latency_s: float,
                     queue_wait_s: Optional[float] = None) -> None:
-        """Record one served request's end-to-end (and queue-wait) latency."""
+        """Record one served request's latency (submit to outputs
+        enqueued) and queue wait (submit to dispatch)."""
         with self._lock:
             self.completed += 1
             self.latency.record(latency_s)
@@ -177,8 +181,3 @@ class ServeMetrics:
     def to_json(self, indent: int = 1) -> str:
         """Serialize :meth:`snapshot` as JSON text."""
         return json.dumps(self.snapshot(), indent=indent)
-
-    def write(self, path: str) -> None:
-        """Write :meth:`to_json` to ``path``."""
-        with open(path, "w") as f:
-            f.write(self.to_json())

@@ -1,7 +1,7 @@
 """Asynchronous serving front-end: continuous batching under latency SLOs.
 
 :class:`AsyncInferenceServer` turns the synchronous batch-at-a-time
-:class:`~repro.serve.engine.InferenceServer` into a service loop (ROADMAP
+:class:`~repro_torch.serve.engine.InferenceServer` into a service loop (ROADMAP
 item 1).  Individual graphs arrive via :meth:`~AsyncInferenceServer.submit`
 with a per-request deadline and get a :class:`Ticket` back immediately; a
 scheduler thread forms batches **by size class and deadline** — ship a
@@ -15,6 +15,15 @@ documented end to end in ``docs/SERVING.md``:
            -> worker pool -> InferenceServer.submit (pad + cached runner)
            -> per-request tickets resolved, metrics recorded
 
+A ticket resolves when ``InferenceServer.submit`` returns, with its
+outputs enqueued on the device, not computed: the device's part of a
+request is in no latency the server records (``ServeMetrics.latency``),
+and a caller that reads the outputs waits for it.  Admission, dispatch
+and deadlines are stamped with :func:`repro_torch.spans.clock`, so the
+recorder's ``serve.queue`` spans and ``ServeMetrics.queue_wait`` read the
+same numbers; each batch records a ``serve.batch`` span, with the event
+of its device completion, while the recorder is on.
+
 Admission control keeps the queue bounded: when full, the configured
 shed policy either rejects the new request (``reject-new``) or evicts the
 globally oldest pending one (``drop-oldest``); either way the victim's
@@ -22,8 +31,8 @@ ticket resolves to a structured :class:`Overloaded` result — callers never
 see an exception from the middle of the pipeline.
 
 Multi-tenancy: several models (and layer counts) registered on one server
-share one :class:`~repro.serve.cache.ProgramCache`, each under its own
-eviction budget (:meth:`~repro.serve.cache.ProgramCache.set_budget`), so a
+share one :class:`~repro_torch.serve.cache.ProgramCache`, each under its own
+eviction budget (:meth:`~repro_torch.serve.cache.ProgramCache.set_budget`), so a
 chatty tenant cannot flush another tenant's warm runners.
 
 Background warmup (:meth:`~AsyncInferenceServer.start`) pre-compiles each
@@ -37,10 +46,10 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+from .. import spans
 from ..core import compiler as C
 from ..gnn.graphs import Graph
 from .cache import ProgramCache
@@ -88,7 +97,8 @@ class Ticket:
         """Create an unresolved ticket (done by the serving machinery)."""
         self.model = model
         self.deadline_s = deadline_s
-        self.t_enqueue = time.monotonic()
+        self.t_enqueue = spans.clock()
+        self.t_dispatch: Optional[float] = None
         self._done = threading.Event()
         self._value: Union[None, List, Overloaded] = None
         self._exc: Optional[BaseException] = None
@@ -139,8 +149,8 @@ class _Request:
     graph: Graph
     inputs: Dict
     ticket: Ticket
-    deadline: float                   # absolute, time.monotonic() terms
-    seq: int                          # admission order (drop-oldest victim key)
+    deadline: float                   # absolute, spans.clock() terms
+    seq: int                          # admission order: the request id
 
 
 class _Tenant:
@@ -201,7 +211,7 @@ class AsyncInferenceServer:
                 steady-state recompiles at any fill); ``none`` ships
                 partial batches as-is (less compute, but each distinct
                 quantized batch count registers its own shapes once).
-            metrics: a shared :class:`~repro.serve.metrics.ServeMetrics`;
+            metrics: a shared :class:`~repro_torch.serve.metrics.ServeMetrics`;
                 defaults to a fresh registry.
 
         Raises:
@@ -228,6 +238,7 @@ class AsyncInferenceServer:
         self._queues: Dict[Tuple, List[_Request]] = {}
         self._depth = 0
         self._seq = itertools.count()
+        self._batch_ids = itertools.count()
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._closed = False
@@ -260,7 +271,7 @@ class AsyncInferenceServer:
             warmup_graphs: representative graphs whose size classes
                 :meth:`start` pre-compiles in the background.
             **engine_kw: forwarded to
-                :class:`~repro.serve.engine.InferenceServer`.
+                :class:`~repro_torch.serve.engine.InferenceServer`.
 
         Returns:
             The tenant's engine (exposed for stats/introspection).
@@ -464,7 +475,7 @@ class AsyncInferenceServer:
             batches: List[Tuple[_Tenant, List[_Request]]] = []
             with self._lock:
                 while True:
-                    now = time.monotonic()
+                    now = spans.clock()
                     batches = self._form_batches_locked(now)
                     if batches:
                         break
@@ -511,7 +522,7 @@ class AsyncInferenceServer:
 
     def _expire_batch(self, reqs: List[_Request]) -> List[_Request]:
         """Shed members whose deadline already passed; keep the rest."""
-        now = time.monotonic()
+        now = spans.clock()
         live: List[_Request] = []
         for r in reqs:
             if r.deadline < now:
@@ -527,7 +538,12 @@ class AsyncInferenceServer:
         try:
             graphs = [r.graph for r in reqs]
             inputs = [r.inputs for r in reqs]
-            t_dispatch = time.monotonic()
+            bid = next(self._batch_ids)
+            t_dispatch = spans.clock()
+            for r in reqs:
+                r.ticket.t_dispatch = t_dispatch
+                spans.record("serve.queue", r.ticket.t_enqueue, t_dispatch,
+                             request=r.seq, batch=bid)
             if self.fill_policy == "pad" and len(graphs) < tenant.max_batch:
                 # duplicate the last member up to the cap: the quantized
                 # batch count — hence the canonical class shapes — stays
@@ -536,12 +552,17 @@ class AsyncInferenceServer:
                 fill = tenant.max_batch - len(graphs)
                 graphs = graphs + [graphs[-1]] * fill
                 inputs = inputs + [inputs[-1]] * fill
-            outs = tenant.engine.submit(graphs, inputs)
-            now = time.monotonic()
-            for r, out in zip(reqs, outs):
-                self.metrics.on_complete(
-                    now - r.ticket.t_enqueue, t_dispatch - r.ticket.t_enqueue)
-                r.ticket._resolve(out)
+            with spans.span("serve.batch", batch=bid,
+                            size_class=list(size_class(reqs[0].graph)),
+                            real=len(reqs), padded=len(graphs)) as sp:
+                outs = tenant.engine.submit(graphs, inputs)
+                sp.mark_device(tenant.engine.device)
+                now = spans.clock()
+                for r, out in zip(reqs, outs):
+                    # latency ends with the outputs enqueued, not computed
+                    self.metrics.on_complete(now - r.ticket.t_enqueue,
+                                             t_dispatch - r.ticket.t_enqueue)
+                    r.ticket._resolve(out)
         except BaseException as exc:      # surfaced via ticket.result()
             for r in reqs:
                 if not r.ticket.done():

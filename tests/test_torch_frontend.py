@@ -91,9 +91,14 @@ COPIED = (
     "core/analysis/__init__.py", "core/analysis/diagnostics.py",
     "core/analysis/ir_verifier.py", "core/analysis/schedule_verifier.py",
     "core/analysis/hazards.py", "analyze.py",
-    "serve/signature.py", "serve/cache.py", "serve/metrics.py",
-    "serve/server.py", "distributed/fault.py", "runtime_flags.py",
+    "serve/signature.py", "serve/cache.py",
+    "distributed/fault.py", "runtime_flags.py",
 )
+
+# the port's serving tier, no longer a copy: its own spans and clock
+# (`repro_torch.spans`) and docstrings, and no `ServeMetrics.write`; the
+# reference's public API otherwise
+OWN_SERVING = {"serve/metrics.py": {"ServeMetrics.write"}, "serve/server.py": set()}
 
 
 # copies whose module docstring says what the module means in the port
@@ -119,6 +124,40 @@ def test_copied_modules_equal_the_reference(path):
     if path in OWN_DOCSTRING:
         port, ref = _without_docstring(port), _without_docstring(ref)
     assert port == ref
+
+
+def _public_api(text: str) -> dict:
+    """Top-level public functions and classes, and the public methods of
+    the classes, each with its argument names."""
+    import ast
+
+    def args(f):
+        a = f.args
+        return tuple(x.arg for x in a.posonlyargs + a.args + a.kwonlyargs)
+
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = args(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            out[node.name] = tuple(b.id for b in node.bases if isinstance(b, ast.Name))
+            for f in node.body:
+                if isinstance(f, ast.FunctionDef) and (
+                        not f.name.startswith("_") or f.name == "__init__"):
+                    out[f"{node.name}.{f.name}"] = args(f)
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(OWN_SERVING))
+def test_own_serving_modules_keep_the_references_api(path):
+    """The serving modules the port instruments keep the reference's
+    public functions, classes and methods, argument for argument, less
+    the ones the port dropped."""
+    port = _public_api((ROOT / "src" / "repro_torch" / path).read_text())
+    ref = _public_api((ROOT / "src" / "repro" / path).read_text())
+    dropped = OWN_SERVING[path]
+    assert dropped <= set(ref) and not dropped & set(port)
+    assert port == {k: v for k, v in ref.items() if k not in dropped}
 
 
 def test_analysis_sweep_matches_reference():

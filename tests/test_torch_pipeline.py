@@ -162,7 +162,6 @@ def test_bind_run_with_reuses_one_runner():
     warm = runner.run_with(ts[1], inputs, params)[0]
     fresh = tpipeline.run_pipelined(c, gs[1], ts[1], inputs, params,
                                     device="cpu")[0]
-    assert runner.jit_cache_size() == 1
     assert runner.signature[1] == ts[1].shape_signature()
     torch.testing.assert_close(warm, fresh, rtol=0, atol=0)
     with pytest.raises(ValueError, match="structurally identical"):

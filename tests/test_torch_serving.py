@@ -79,8 +79,6 @@ def test_repeated_stream_zero_rebuilds():
     for req in range(6):
         ts.submit(*_stream(jtr, "gcn", 5, seed0=req * 50))
     assert ts.compile_count == 1 and ts.cache_hits == 5
-    runner = next(iter(ts.cache._entries.values()))
-    assert runner.jit_cache_size() == 1
 
 
 def test_mixed_sizes_request_params_and_edgeless_graphs():

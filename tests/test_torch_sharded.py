@@ -283,7 +283,7 @@ def test_bind_and_run_with_without_rebuild():
     assert _rel_err("gcn", warm, fresh(i2, params)[0]) < REL_TOL
     want = texecutor.run_reference(ttr, g2, i2, params, device="cpu")[0]
     assert _rel_err("gcn", warm, want) < REL_TOL
-    assert r.signature == fresh.signature and r.jit_cache_size() == 1
+    assert r.signature == fresh.signature
     # exact (unquantized) caps: g3's shard 1 owns no real tile
     exact = tpipeline.ShardedRunner(c, g1, t1, 2, mode="contiguous", **_cpu(2))
     assert t3.shape_signature() == t1.shape_signature()
