@@ -33,9 +33,10 @@ While the recorder (:mod:`repro_torch.spans`) is on, a
 around the edge plans and the COO densify) and ``runner.run`` (the host's
 enqueue of the interpreter), and counts the host arrays it uploads
 (``runner.h2d_bytes`` / ``runner.h2d_tensors``) and, each run, the source
-rows its batches compute over (``runner.src_rows_padded``: T x S_max of
-each batch; ``runner.src_rows_real``: the tiles' ``n_src``) against the
-graph's vertices (``runner.vertices``).
+rows its batches' operand gathers and kernels walk (``runner.src_rows_padded``:
+T x S_max of each batch; ``runner.src_rows_real``: the tiles' ``n_src``),
+the rows its source blocks' vertex ops ran over
+(``runner.src_rows_computed``) and the graph's vertices (``runner.vertices``).
 """
 from __future__ import annotations
 
@@ -303,8 +304,9 @@ class _Interpreter:
     def __init__(self, sp: S.ScheduledProgram, params: Dict,
                  vstore: Dict[int, Array], estore: Dict[int, Array],
                  n_vertices: int, device, *, pid: str = "part_id",
-                 pending=frozenset()):
+                 pending=frozenset(), count_src_rows: bool = False):
         self.sp = sp
+        self.count_src_rows = count_src_rows
         self.params = params
         self.vstore = vstore
         self.estore = estore
@@ -317,7 +319,8 @@ class _Interpreter:
 
     def eval_vertex(self, rows, nodes, padded=False) -> Dict[int, Array]:
         """rows: vertex ids of any shape — (T, S) source slots or
-        (P, Dmax) partition rows; ``padded=True`` (dst blocks) reads
+        (P, Dmax) partition rows — or ``slice(None)``, every vertex in
+        store order; ``padded=True`` (dst blocks) reads
         values still sitting in partition layout."""
         env: Dict[int, Array] = {}
 
@@ -343,6 +346,17 @@ class _Interpreter:
             else:
                 env[n.id] = apply_compute(n.op, n.attrs, self.params,
                                           [lookup(i) for i in n.inputs])
+        return env
+
+    def eval_source(self, rows, nodes) -> Dict[int, Array]:
+        """A source block's vertex nodes over ``rows``: a batch's (T, S)
+        source slots, or every vertex for ``rows=slice(None)``.  With
+        ``count_src_rows``, counts the rows when a node ran
+        (``runner.src_rows_computed``)."""
+        env = self.eval_vertex(rows, nodes)
+        if env and self.count_src_rows:
+            spans.count("runner.src_rows_computed",
+                        self.V if isinstance(rows, slice) else rows.numel())
         return env
 
     def edge_env(self, nodes, xs, senv):
@@ -399,7 +413,7 @@ class _Interpreter:
                 # unbucketed batch
                 ta0, kc0 = softmax
                 xs0 = _with_dst(ta0, V, self.pid)
-                senv = self.eval_vertex(xs0["src_ids"], phase.src.nodes)
+                senv = self.eval_source(xs0["src_ids"], phase.src.nodes)
                 h = self.src_value(senv, g.src_value_id,
                                    xs0["src_ids"]).contiguous()
                 scores = self.edge_values(g, g.score_id, xs0, senv)
@@ -410,7 +424,7 @@ class _Interpreter:
             # outputs summed into a shared (P, Dmax, F) buffer
             total = torch.zeros((n_parts, dmax, g.acc.dim), device=dev)
             for ta, kc in batches:
-                senv = self.eval_vertex(ta["src_ids"], phase.src.nodes)
+                senv = self.eval_source(ta["src_ids"], phase.src.nodes)
                 xsrc = self.src_value(senv, g.src_value_id,
                                       ta["src_ids"]).contiguous()
                 w = (None if g.kernel == S.KERNEL_SPMM else
@@ -428,7 +442,7 @@ class _Interpreter:
             acc = _init_gather_acc(scan_gathers, n_parts * dmax, dev)
             for ta, _ in batches:
                 xs = _real_edges(ta, self.pid)
-                senv = self.eval_vertex(xs["src_ids"], phase.src.nodes)
+                senv = self.eval_source(xs["src_ids"], phase.src.nodes)
                 _, elookup = self.edge_env(phase.edge.nodes, xs, senv)
                 dest = xs["edge_part"] * dmax + xs["edge_dst"]
                 for g in scan_gathers:
@@ -457,6 +471,11 @@ class PipelinedRunner:
     path differentiates; a kernel-tagged gather refuses a gradient
     (:func:`kernel_gather`), so a runner that trains is built with
     ``kernel_dispatch=False``.  Serving runs under inference mode.
+
+    A call that autograd does not record evaluates each phase's source
+    block once over the flat (V, F) vertex store where V is at most the
+    padded source rows of the batches (``bind``'s count); else, and
+    always under autograd, per batch over its (T, S_max) source slots.
     """
 
     def __init__(self, compiled: C.CompiledGNN, graph: Graph, tiles,
@@ -544,11 +563,20 @@ class PipelinedRunner:
         inputs = {k: to_device(v, self.device) for k, v in inputs.items()}
         params = {k: to_device(v, self.device) for k, v in params.items()}
         *ops, (padded, real) = operands
+        V = self.graph.n_vertices
+        # a source block costs V rows evaluated flat, ``padded`` rows
+        # evaluated per slot: flat unless the vertices outnumber the slots,
+        # as where most of them source no tile.  Under autograd the blocks
+        # stay per slot, so gradients sum in the reference's per-slot order
+        # (training's trajectory parity with the reference rests on it)
+        records = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*inputs.values(), *params.values()))
         with spans.span("runner.run"):
             spans.count("runner.src_rows_padded", padded)
             spans.count("runner.src_rows_real", real)
-            spans.count("runner.vertices", self.graph.n_vertices)
-            return self._run(inputs, params, *ops)
+            spans.count("runner.vertices", V)
+            return self._run(inputs, params, *ops,
+                             V <= padded and not records)
 
     def run_with(self, tiles, inputs: Dict, params: Dict,
                  reordering=None) -> List[Array]:
@@ -556,7 +584,11 @@ class PipelinedRunner:
         (no rebuild: operand shapes are identical by contract)."""
         return self(inputs, params, operands=self.bind(tiles, reordering))
 
-    def _run(self, inputs, params, tas, kcs, ta0, kc0, perm) -> List[Array]:
+    def _run(self, inputs, params, tas, kcs, ta0, kc0, perm,
+             flat: bool) -> List[Array]:
+        """One pass.  ``flat``: evaluate each phase's source block once over
+        the flat (V, F) store before its tile work, so the batches only
+        gather its rows; else per batch over the (T, S_max) slots."""
         sp = self.sp
         V = self.graph.n_vertices
         P, dmax = self.tiles.n_dst_parts, self.dmax
@@ -589,7 +621,8 @@ class PipelinedRunner:
             for gb in ph.gathers:
                 if gb.src_value_id is not None:
                     tile_side_reads.add(gb.src_value_id)
-        it = _Interpreter(sp, params, vstore, estore, V, dev)
+        it = _Interpreter(sp, params, vstore, estore, V, dev,
+                          count_src_rows=True)
         batches = list(zip(tas, kcs))
 
         def publish_gather(recv_id, padded_val):
@@ -613,6 +646,10 @@ class PipelinedRunner:
                 for nid in phase.dst.store_ids:
                     vstore[nid] = unpad(denv[nid])
             if phase.has_tile_work:
+                if flat:
+                    # nodes an earlier phase stored are not recomputed, and
+                    # gather_blocks finds every node of the block stored
+                    vstore.update(it.eval_source(slice(None), phase.src.nodes))
                 it.gather_blocks(phase, batches, (ta0, kc0), P, dmax,
                                  self.layout, publish_gather)
 

@@ -155,6 +155,45 @@ def test_stacked_scan_gradients_match_reference(name, n_layers):
                         _ref_grads(lambda p: jr(inputs, p), params, w))
 
 
+@pytest.mark.parametrize("layout", ["coo", "csr"])
+def test_training_keeps_source_blocks_per_slot(layout, monkeypatch):
+    """Where the tiles' padded source rows are at least V, a call under
+    autograd still evaluates the 3-layer GCN's source blocks per slot, so
+    its gradients sum in the reference's order and hold the reference's;
+    the same call under inference mode runs each transform once over the
+    V rows of the flat store and gives the same output."""
+    g, tg, jtr, ttr, params, inputs, w, jt, tt = _case("gcn", 3, layout=layout)
+    jr = jpipeline.PipelinedRunner(jcompiler.compile_gnn(jtr), g, jt,
+                                   kernel_dispatch=False)
+    tr = tpipeline.PipelinedRunner(tcompiler.compile_gnn(ttr), tg, tt,
+                                   kernel_dispatch=False, device="cpu")
+    operands = tr.bind(tt)
+    assert tg.n_vertices <= operands[-1][0]
+    rows = []
+    real = tpipeline.apply_compute
+
+    def record(op, attrs, p, args):
+        if "weight" in attrs:
+            rows.append((attrs["weight"], tuple(args[0].shape[:-1])))
+        return real(op, attrs, p, args)
+
+    monkeypatch.setattr(tpipeline, "apply_compute", record)
+    outs = []
+
+    def fn(p):
+        outs.append(tr(inputs, p, operands=operands)[0])
+        return outs[-1:]
+
+    got = _port_grads(fn, params, w)
+    assert rows and all(r == tuple(tt.src_ids.shape) for _, r in rows)
+    _assert_grads_equal(got, _ref_grads(lambda p: jr(inputs, p), params, w))
+    rows.clear()
+    with torch.inference_mode():
+        flat = tr(inputs, params, operands=operands)[0]
+    assert sorted(rows) == [(f"l{i}.W", (tg.n_vertices,)) for i in range(3)]
+    torch.testing.assert_close(flat, outs[0].detach())
+
+
 def _ref_build_mlp_gcn(tr, g, in_dim, hidden, n_classes):
     """examples/train_gnn.py's model, as the reference example builds it."""
     x = tr.input_vertex(in_dim, "x")

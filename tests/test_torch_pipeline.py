@@ -85,6 +85,61 @@ def test_pipelined_matches_reference_engines(name, n_layers, layout,
     assert _err(name, tref.numpy(), oracle, scaled) < _tol(name)
 
 
+def _record_compute(monkeypatch):
+    """(node attrs, shape of the first operand) of every vertex and edge op
+    the runner evaluates; a node's ``attrs`` dict is its own."""
+    calls = []
+    real = tpipeline.apply_compute
+
+    def record(op, attrs, params, args):
+        calls.append((attrs, tuple(args[0].shape)))
+        return real(op, attrs, params, args)
+
+    monkeypatch.setattr(tpipeline, "apply_compute", record)
+    return calls
+
+
+@pytest.mark.parametrize("graph", ["connected", "isolated"])
+@pytest.mark.parametrize("kernel_dispatch", [True, False], ids=["kernels", "scan"])
+@pytest.mark.parametrize("layout", ["coo", "csr"])
+@pytest.mark.parametrize("n_layers", [2, 3])
+@pytest.mark.parametrize("name", ["gcn", "gat", "sage"])
+def test_source_block_runs_once_per_vertex(name, n_layers, layout,
+                                           kernel_dispatch, graph, monkeypatch):
+    """Where the tiles' padded source rows are at least V, each node of a
+    source block runs once a run, over the V rows of the flat store, and
+    every op that reads a weight runs once (no layer's transform twice).
+    On a graph whose vertices mostly source no tile, the source blocks run
+    per batch over its (T, S_max) slots.  Both hold the oracle."""
+    V, E = (64, 260) if graph == "connected" else (2000, 100)
+    g, jtr, ttr, params, inputs = _setup(name, n_layers, V, E)
+    oracle = np.asarray(jexecutor.run_reference(jtr, g, inputs, params)[0])
+    tts = ttiling.grid_tile(g, 3, 3, sparse=True, layout=layout)
+    runner = tpipeline.PipelinedRunner(tcompiler.compile_gnn(ttr), g, tts,
+                                       kernel_dispatch=kernel_dispatch,
+                                       device="cpu")
+    operands = runner.bind(tts)
+    padded = operands[-1][0]
+    assert (V <= padded) == (graph == "connected")
+    calls = _record_compute(monkeypatch)
+    got = runner(inputs, params, operands=operands)[0].numpy()
+
+    sp = runner.sp
+    dst = {id(n.attrs) for ph in sp.phases for n in ph.dst.nodes}
+    src = {id(n.attrs) for ph in sp.phases if ph.has_tile_work
+           for n in ph.src.nodes} - dst
+    src_calls = [(id(a), shape) for a, shape in calls if id(a) in src]
+    assert src_calls
+    if graph == "connected":
+        assert all(shape[:-1] == (V,) for _, shape in src_calls)
+        assert len({a for a, _ in src_calls}) == len(src_calls)
+        weights = [a["weight"] for a, _ in calls if "weight" in a]
+        assert len(set(weights)) == len(weights)
+    else:
+        assert all(shape[:-1] == tts.src_ids.shape for _, shape in src_calls)
+    assert _err(name, got, oracle, n_layers == 3) < _tol(name)
+
+
 def _layer_by_layer_oracle(name, n_layers, g, inputs, params):
     """Chain n_layers SINGLE-layer whole-graph references of `repro`: layer
     l's output becomes layer l+1's input, per-layer params stripped of

@@ -203,6 +203,39 @@ def test_source_row_counters_by_hand(name, bucketed, recorder):
     assert c["runner.h2d_tensors"] > 0          # bound once, at the first run
 
 
+def _hand_graph_isolated():
+    # the hand graph's edges on 40 vertices (parts {0..19}, {20..39}),
+    # vertices 4..7 moved to 20..23: the same 4 tiles of 8 slots, 32 padded
+    # rows, now fewer than the vertices
+    g = _hand_graph()
+    move = np.where(np.arange(8) < 4, np.arange(8), np.arange(8) + 16)
+    return tgraphs.Graph(src=move[g.src].astype(np.int32),
+                         dst=move[g.dst].astype(np.int32), n_vertices=40)
+
+
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+@pytest.mark.parametrize("bucketed", [False, True])
+@pytest.mark.parametrize("isolated", [False, True], ids=["flat", "per_slot"])
+def test_computed_source_row_counter_by_hand(name, bucketed, isolated,
+                                             recorder):
+    g = _hand_graph_isolated() if isolated else _hand_graph()
+    tiles = (build_tiles(g, 2, 2, n_buckets=2)[0] if bucketed
+             else grid_tile(g, 2, 2, sparse=True))
+    tr = tmodels.trace_named(name, DIM, DIM)
+    runner = PipelinedRunner(tcompiler.compile_gnn(tr), g, tiles, device="cpu")
+    ins, params = tmodels.init_inputs(tr, g, seed=1), tmodels.init_params(tr)
+    spans.enable()
+    for _ in range(3):
+        runner(ins, params)
+    c = spans.export()["counters"]
+    assert c["runner.src_rows_padded"] == 3 * 4 * 8
+    # one phase with tile work, whose source block computes one node (gcn's
+    # transform, gat's source score): over the 8 vertices of the flat
+    # store, or over the 32 slots of the batches where 40 vertices are more
+    assert c["runner.src_rows_computed"] == 3 * (32 if isolated else 8)
+    assert c["runner.vertices"] == 3 * (40 if isolated else 8)
+
+
 @pytest.mark.parametrize("explicit", [False, True])
 def test_spans_are_on_the_profilers_clock(explicit):
     if explicit:
