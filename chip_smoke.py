@@ -6,7 +6,7 @@
 Phases, each printing one JSON line or more:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch version;
-2. build: compile the three ``csrc/*.cu`` sources for sm_90a side by side
+2. build: compile the four ``csrc/*.cu`` sources for sm_90a side by side
    (one ``nvcc`` each), with the seconds taken and ``ptxas``' report;
 3. kernel checks: each of the four CUDA tile kernels against its plain
    PyTorch version on the card, at the shapes of phases 4 and 5, with its
@@ -26,7 +26,23 @@ Phases, each printing one JSON line or more:
    plan's build time (each gat submit builds one at bind);
 5. whole graph (CSR tiles): ``run_pipelined`` on the coAuthorsDBLP stand-in
    (299,068 vertices, 977,676 edges) for 2-layer gcn and gat at width 128,
-   against ``run_reference``.
+   against ``run_reference``;
+5b. R-GCN as published on the stand-in with inverse edges, at the
+   benchmark cell rgcn2-dblp-rel-whole's shapes (1,955,352 messages, 206
+   relations drawn by the cell's Zipf law, 40 bases, width 128): the
+   relation-grouped edge GEMM against its plain version, reading its rows
+   in place from the (299,068, 128) table, element by element within
+   ``2 gamma_F sum |x w|``, once with host syncs made errors, timed beside
+   the plain version and its bound; its backward (dx through the same
+   kernel, dW through the weight-gradient kernel), element by element within
+   ``2 gamma_n`` of its sums' magnitude and within ``sqrt(n) u`` of its
+   largest entry; then one pass
+   of ``PipelinedRunner`` (CSR tiles, kernel dispatch on) with the
+   kernel's launches counted around it, against ``run_reference`` on the
+   card (``MODEL_TOL``), and the gradients of a probe through it (four
+   GEMM and two weight-gradient launches), each leaf within
+   ``GRAD_PLAIN_MULTIPLE`` times the distance of the same runner's
+   gradients with the plain versions from the fp64 oracle's;
 
 6. LM kernel checks: the flash-attention and grouped-FFN kernels against
    their plain versions, in fp32 and bf16, at phase 7's shapes — flash
@@ -209,7 +225,8 @@ Phases, each printing one JSON line or more:
    ``serve_async.py``) at their default sizes on the card, each holding
    its results against its oracle.
 
-Launch counters are set to 0 before phase 4 and read after phase 5, set to
+Launch counters are set to 0 before phase 4 and read after phase 5 (the
+relation GEMM's around phase 5b's runner pass), set to
 0 again before phase 7 and read after it, and likewise around each of
 phases 8, 9 and 10, around phase 12's two full-size training runs and
 around each of phase 13's gin steps and phase 14's two parts; phases 11,
@@ -223,8 +240,8 @@ meshes; in phase 15 flash in each of 15a-d, the grouped FFN in 15c; in
 phase 16 flash in 16a, 16c and 16d, the grouped FFN in 16d; in phase 17
 flash in both calibration steps, the grouped FFN in the prefill, the COO
 SpMM and COO softmax in the kernel-path demo, counted around each).  Then one
-``{"kernels": [...]}`` line (all six,
-launches of phases 4-5 and 7), the ``nvidia-smi`` name/power line, and
+``{"kernels": [...]}`` line (all seven,
+launches of phases 4-5b and 7), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": ...}``.
 Any failure raises, so the exit code is nonzero and no ``ok`` line prints;
 so does a machine without a visible CUDA device.  Weights and inputs come
@@ -249,9 +266,11 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # in fp32 in another order, and that difference scales with the terms'
 # magnitudes, not with the result (a high-degree row's sum cancels)
 KERNEL_TOL = (1e-4, 1e-4)
-MODEL_TOL = {"gcn": 5e-4, "gat": 1e-4, "sage": 5e-4}   # vs the oracle, x max(1, |ref|)
+MODEL_TOL = {"gcn": 5e-4, "gat": 1e-4, "sage": 5e-4,    # vs the oracle, x max(1, |ref|)
+             "rgcn": 5e-4}
 WIDTH = 128                    # the paper's embedding size (EMBED)
 SOURCE = "src/repro_torch/kernels/tile_spmm/csrc/tile_spmm.cu"
+RELATION_SOURCE = "src/repro_torch/kernels/relation_gemm/csrc/relation_gemm.cu"
 REPLACES = {
     "tile_spmm": "src/repro/kernels/tile_spmm/kernel.py:67",
     "tile_spmm_csr": "src/repro/kernels/tile_spmm/kernel.py:172",
@@ -259,7 +278,18 @@ REPLACES = {
     "segment_softmax_csr": "src/repro/kernels/tile_spmm/kernel.py:234",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:112",
     "grouped_ffn": "src/repro/kernels/moe_dispatch/kernel.py:57",
+    # no Pallas kernel: the reference's einsum over a weight gathered per edge
+    "relation_gemm": "src/repro/core/executor.py:46",
 }
+# phase 5b: R-GCN as published at the cell rgcn2-dblp-rel-whole's sizes
+# (gnnbench/configs/rgcn2-b40-w128.json, gnnbench/traffic/dblp-rel-whole.json):
+# 103 relations and their inverses, 40 bases, each canonical edge's relation
+# drawn by a Zipf law of exponent 1.0 with seed 0
+RGCN = dict(relations=206, bases=40, zipf=1.0, relation_seed=0)
+# its gradients through the runner, each leaf's distance from the fp64
+# oracle's, with the kernels at most this many times the plain versions'
+# in the same runner (0.89-1.13 on an H100 at these shapes; PERF.md §6)
+GRAD_PLAIN_MULTIPLE = 1.5
 LM_SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "grouped_ffn": "src/repro_torch/kernels/moe_dispatch/csrc/grouped_ffn.cu",
@@ -841,6 +871,203 @@ def whole_graph_phase(graph, tiles, dev):
                   edges=graph.n_edges, run_s=run_s, err_vs_oracle=err,
                   tol=MODEL_TOL[name],
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: R-GCN as published: the relation GEMM, its backward, the runner
+# ---------------------------------------------------------------------------
+
+def _gamma(n: int) -> float:
+    """gamma_n = n u / (1 - n u), u = 2^-24: two float32 sums of n terms in
+    any two orders differ by at most 2 gamma_n times the sum of |terms|."""
+    nu = n * 2.0 ** -24
+    return nu / (1 - nu) if nu < 1 else float("inf")
+
+
+class _plain_relation_gemm:
+    """Within it, the relation GEMM and its backward take their plain
+    versions on every device (``ops._gemm`` / ``ops._wgrad`` swapped)."""
+
+    def __init__(self, rops):
+        self.rops = rops
+
+    def __enter__(self):
+        r = self.rops
+        self.saved = r._gemm, r._wgrad
+        r._gemm = lambda x, w, plan, out=None: r.relation_gemm_ref(x, w, plan, out)
+        r._wgrad = r.relation_wgrad_ref
+
+    def __exit__(self, *exc):
+        self.rops._gemm, self.rops._wgrad = self.saved
+
+
+def relational_phase(graph, dev, *, width=WIDTH, grid=64, rgcn=RGCN):
+    """Phase 5b on ``graph`` (the canonical edges); returns the relation
+    GEMM's ``kernels`` row and its launches in the runner's pass."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compiler
+    from repro_torch.core.executor import run_reference
+    from repro_torch.core.pipeline import PipelinedRunner
+    from repro_torch.core.tiling import build_tiles
+    from repro_torch.gnn import relational as RL
+    from repro_torch.kernels.relation_gemm import kernel as RK
+    from repro_torch.kernels.relation_gemm import ops as rops
+
+    R, F = rgcn["relations"], width
+    law = 1.0 / np.arange(1, R // 2 + 1) ** rgcn["zipf"]
+    rel = np.random.default_rng(rgcn["relation_seed"]).choice(
+        R // 2, size=graph.n_edges, p=law / law.sum()).astype(np.int32)
+    t0 = time.perf_counter()
+    g, einp = RL.relational_graph(graph.src, graph.dst, rel, graph.n_vertices, R,
+                                  name=graph.name)
+    tiles, ro = build_tiles(g, grid, grid, layout="csr")
+    host_s = time.perf_counter() - t0
+    E, V = g.n_edges, g.n_vertices
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # the kernel, each edge reading its source row of the (V, F) table
+    types = torch.as_tensor(g.edge_type, device=dev)
+    plan = rops.read_rows(rops.relation_plan(types, R),
+                          torch.as_tensor(g.src, device=dev))
+    x, w = randn(V, F), randn(R, F, F, scale=F ** -0.5)
+    sizes = torch.bincount(types.long(), minlength=R)
+
+    def kernel():
+        return rops.relation_gemm(x, w, plan)
+
+    def plain():
+        return rops.relation_gemm_ref(x, w, plan)
+
+    without_host_sync(kernel)
+    got, want = kernel(), plain()
+    err = (got - want).abs()
+    # each output is a float32 dot product of F terms
+    ok = bool((err <= 2 * _gamma(F) * rops.relation_gemm_ref(x.abs(), w.abs(), plan)).all())
+    require(bool(torch.isfinite(got).all()), "relation_gemm: non-finite output")
+    require(ok, f"relation_gemm: max abs err {float(err.max())} over 2 gamma_F sum|x w|")
+    b_ms, b_by = bound(E * 2 * F * 4 + E * 8 + R * F * F * 4, 2 * E * F * F)
+    row = dict(name="relation_gemm", route="cuda", source=RELATION_SOURCE,
+               replaces=REPLACES["relation_gemm"], max_abs_err=float(err.max()),
+               tol="2 gamma_F sum|x w|, elementwise", ms=time_ms(kernel),
+               plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               shapes=dict(E=E, R=R, F=F, table=V, largest_relation=int(sizes.max()),
+                           smallest_relation=int(sizes.min()),
+                           tiles=int(plan.tile_off[-1])))
+    emit(dict(phase="kernel_check", **row))
+    del got, want, err
+
+    # its backward: dx through the same kernel (W transposed, rows swapped,
+    # added atomically into the table's rows), dW through the weight-gradient
+    # kernel, against the plain versions
+    xg, wg, dy = x.clone().requires_grad_(), w.clone().requires_grad_(), randn(E, F)
+
+    def backward():
+        return torch.autograd.grad(rops.relation_gemm(xg, wg, plan), (xg, wg), dy)
+
+    n0 = dict(RK.LAUNCHES)
+    dx, dw = without_host_sync(backward)
+    require(RK.LAUNCHES["relation_gemm"] - n0["relation_gemm"] == 2
+            and RK.LAUNCHES["relation_wgrad"] - n0["relation_wgrad"] == 1,
+            f"relation GEMM backward: launches {RK.LAUNCHES} from {n0}")
+    back = rops.RelationPlan(plan.dst_rows, plan.src_rows, plan.seg, plan.tile_off)
+    wt = w.transpose(1, 2)
+    uses = int(torch.bincount(plan.src_rows.long(), minlength=V).max())
+    bwd = {}
+    for name, got, want, mag, n in (
+            ("dx", dx, rops.relation_gemm_ref(dy, wt, back, out=torch.zeros_like(x)),
+             rops.relation_gemm_ref(dy.abs(), wt.abs(), back, out=torch.zeros_like(x)),
+             F * uses),
+            ("dw", dw, rops.relation_wgrad_ref(x, dy, plan),
+             rops.relation_wgrad_ref(x.abs(), dy.abs(), plan), int(sizes.max()))):
+        err = (got - want).abs()
+        rel_max = float(err.max()) / float(want.abs().max())
+        bwd[name] = dict(max_abs_err=float(err.max()), err_of_max=rel_max, terms=n,
+                         limit_of_max=n ** 0.5 * 2.0 ** -24)
+        require(bool(torch.isfinite(got).all()), f"relation GEMM {name}: non-finite")
+        # 2 gamma_n bounds rounding errors that all align, loose for long
+        # sums; at random they add to ~sqrt(n) u of the largest entry, which
+        # a wrong row or relation passes by orders of magnitude
+        require(bool((err <= 2 * _gamma(n) * mag).all())
+                and rel_max <= bwd[name]["limit_of_max"],
+                f"relation GEMM {name}: {bwd[name]}")
+    emit(dict(phase="relation_gemm_backward", **bwd, ms=time_ms(backward),
+              bound_ms=2 * b_ms))
+    del dx, dw, xg, wg, dy, x, w, plan
+
+    # one pass of the runner, and the gradients of a probe through it
+    tr = RL.trace_rgcn(2, F, F, F, R)
+    shapes = RL.basis_shapes(2, F, F, F, R, rgcn["bases"])
+    params = {k: randn(*s, scale=s[-2] ** -0.5) for k, s in shapes.items()}
+    inputs = {k: torch.as_tensor(v, device=dev) for k, v in einp.items()}
+    inputs["x"] = randn(V, F)
+    runner = PipelinedRunner(compiler.compile_gnn(tr), ro.graph, tiles,
+                             reordering=ro, device=dev)
+    with torch.inference_mode():
+        RL.run(runner, inputs, params)                       # binds
+        torch.cuda.synchronize()
+        RK.reset_launches()
+        out = RL.run(runner, inputs, params)[0]
+        torch.cuda.synchronize()
+        launches = dict(RK.LAUNCHES)
+        pass_ms = time_ms(lambda: RL.run(runner, inputs, params), runs=10)
+    require(launches == {"relation_gemm": 2, "relation_wgrad": 0},
+            f"R-GCN pass: relation GEMM launches {launches}, expected one a layer")
+    want = run_reference(tr, g, inputs, RL.combine_bases(params), device=dev)[0]
+    fwd_err = scaled_err(out, want)
+    require(bool(torch.isfinite(out).all()) and fwd_err <= MODEL_TOL["rgcn"],
+            f"R-GCN pass: err {fwd_err} over {MODEL_TOL['rgcn']}")
+    del out, want
+    probe = randn(V, F)
+    leaves = {"x": inputs["x"], **params}
+
+    def grads(run, dtype=torch.float32):
+        p = {k: v.detach().to(dtype).requires_grad_() for k, v in leaves.items()}
+        i = {k: v.to(dtype) for k, v in inputs.items()}
+        i["x"] = p.pop("x")
+        y = run(i, p)
+        got = torch.autograd.grad((y * probe.to(dtype)).sum(), [i["x"], *p.values()])
+        return {k: v.double() for k, v in zip(leaves, got)}
+
+    RK.reset_launches()
+    kernels = grads(lambda i, p: RL.run(runner, i, p)[0])
+    grad_launches = dict(RK.LAUNCHES)
+    with _plain_relation_gemm(rops):
+        plain_grads = grads(lambda i, p: RL.run(runner, i, p)[0])
+    oracle = {dt: grads(lambda i, p: run_reference(tr, g, i, RL.combine_bases(p),
+                                                   device=dev)[0], dt)
+              for dt in (torch.float32, torch.float64)}
+    exact = oracle[torch.float64]
+
+    def err(got):
+        return {k: float((got[k] - w).abs().max() / w.abs().max()) for k, w in exact.items()}
+
+    # Against the fp64 oracle, float32 gradients here are off by 1e-3-1e-2
+    # of their largest entry, the fp32 oracle's as much: ReLUs whose
+    # pre-activation lies within rounding of 0 take the other branch in one
+    # run and not the other.  So the kernels are held to the plain versions
+    # in the same runner, each against fp64: a wrong row or relation moves
+    # a leaf by the order of its largest entry, far past GRAD_PLAIN_MULTIPLE
+    # times the plain versions' own error.
+    e_kernel, e_plain, e_oracle = err(kernels), err(plain_grads), err(oracle[torch.float32])
+    emit(dict(phase="rgcn", graph=g.name, vertices=V, messages=E, relations=R,
+              bases=rgcn["bases"], width=F, host_graph_and_tiling_s=host_s,
+              tiles=tiles.n_tiles, s_max=tiles.s_max, pass_ms=pass_ms,
+              launches=launches, err_vs_oracle=fwd_err, tol=MODEL_TOL["rgcn"],
+              grad_launches=grad_launches, grad_err_vs_fp64=e_kernel,
+              plain_grad_err_vs_fp64=e_plain, oracle_grad_err_vs_fp64=e_oracle,
+              grad_plain_multiple=GRAD_PLAIN_MULTIPLE,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    require(grad_launches == {"relation_gemm": 4, "relation_wgrad": 2},
+            f"R-GCN gradients: relation GEMM launches {grad_launches}")
+    for k, e in e_kernel.items():
+        require(e <= GRAD_PLAIN_MULTIPLE * e_plain[k] + 1e-6,
+                f"R-GCN gradient {k}: {e} of its largest entry from fp64, the plain "
+                f"versions' {e_plain[k]}")
+    return row, launches["relation_gemm"]
 
 
 # ---------------------------------------------------------------------------
@@ -3794,6 +4021,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.moe_dispatch import kernel as GK
+    from repro_torch.kernels.relation_gemm import kernel as RK
     from repro_torch.kernels.tile_spmm import kernel as K
     from repro_torch.serve import ShapeRegistry
 
@@ -3811,10 +4039,10 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started at once, then load each
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        list(pool.map(_build.build, [m.SOURCE for m in (K, FK, GK)]))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        list(pool.map(_build.build, [m.SOURCE for m in (K, FK, GK, RK)]))
     ptxas = {}
-    for m in (K, FK, GK):
+    for m in (K, FK, GK, RK):
         m.library()
         log = _build.library_path(m.SOURCE).with_suffix(".log")
         ptxas[m.SOURCE.name] = [ln.strip() for ln in log.read_text().splitlines()
@@ -3849,6 +4077,9 @@ def main() -> int:
     launches = dict(K.LAUNCHES)
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched on the main path")
+    # 5b. R-GCN as published at its cell's shapes
+    rel_row, launches["relation_gemm"] = relational_phase(dblp, dev)
+    rows.append(rel_row)
 
     # 6. LM kernel checks, at the shapes of phase 7's models: full width,
     # DeepSeek-V2 and Qwen2-VL cut to 2 layers (80 layers of the VLM would

@@ -17,7 +17,11 @@ levels or roles of its own.  Per phase:
   edge plan (built at bind, for either layout),
 * ``scan``-tagged gathers (sage, rgcn) fold every tile's edges into the
   shared accumulators with one batched ``index_add_`` /
-  ``scatter_reduce_`` per bucket: there is no kernel on that path.
+  ``scatter_reduce_`` per bucket, over each bucket's real edges (listed
+  at bind).  Their edge blocks read a stored source value by each
+  edge's global source row, and R-GCN's ``bmm_edge`` is one launch of
+  the relation-grouped edge GEMM (``kernels/relation_gemm``) on a plan
+  made once a run, and so is its backward.
 
 The reference engine ``vmap``s and ``scan``s per tile; here the tile
 dimension is written out, so every source, edge and kernel operand is a
@@ -36,7 +40,12 @@ enqueue of the interpreter), and counts the host arrays it uploads
 rows its batches' operand gathers and kernels walk (``runner.src_rows_padded``:
 T x S_max of each batch; ``runner.src_rows_real``: the tiles' ``n_src``),
 the rows its source blocks' vertex ops ran over
-(``runner.src_rows_computed``) and the graph's vertices (``runner.vertices``).
+(``runner.src_rows_computed``), the graph's vertices and edges
+(``runner.vertices``, ``runner.edges``), and the rows its edge GEMMs ran
+over (``runner.edge_gemm_rows``).  Around the relation grouping it records
+``runner.rel_plan``; for a program with an edge GEMM it counts the graph's
+relations that have an edge (``runner.rel_groups``, from the graph's
+``edge_type`` on the host).
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from .. import spans
 from ..convert import to_device
 from ..device import resolve
 from ..gnn.graphs import Graph
+from ..kernels.relation_gemm import ops as rops
 from ..kernels.tile_spmm import ops as tops
 from ..kernels.tile_spmm.kernel import (check_partition_major, partition_ptr,
                                         tile_flags)
@@ -237,6 +247,7 @@ def _real_edges(ta: Dict[str, Array], pid: str) -> Dict[str, Array]:
     tile, slot = emask.nonzero(as_tuple=True)
     xs = {k: ta[k][tile, slot] for k in ("edge_src", "edge_dst", "edge_gid")}
     xs["src_ids"] = ta["src_ids"]
+    xs["src_gid"] = ta["src_ids"][tile, xs["edge_src"]]
     xs["tile"] = tile
     xs["edge_part"] = ta[pid][tile]
     xs["dst_global"] = ta["part_start"][ta["part_id"][tile]] + xs["edge_dst"]
@@ -304,8 +315,13 @@ class _Interpreter:
     def __init__(self, sp: S.ScheduledProgram, params: Dict,
                  vstore: Dict[int, Array], estore: Dict[int, Array],
                  n_vertices: int, device, *, pid: str = "part_id",
-                 pending=frozenset(), count_src_rows: bool = False):
+                 pending=frozenset(), count_src_rows: bool = False,
+                 real: Optional[Sequence[Dict[str, Array]]] = None):
         self.sp = sp
+        # each batch's real edges (:func:`_real_edges`), given from bind or
+        # listed at first use; copied, since a run keeps its plans in them
+        self._real: Dict[int, Dict[str, Array]] = dict(
+            enumerate(dict(xs) for xs in real or ()))
         self.count_src_rows = count_src_rows
         self.params = params
         self.vstore = vstore
@@ -364,14 +380,25 @@ class _Interpreter:
         its (T, E) slots (:func:`_with_dst`) or its real edges
         (:func:`_real_edges`)."""
         eenv: Dict[int, Array] = {}
+        # real edges' source rows of a stored value, gathered only when a
+        # consumer other than the edge GEMM (which reads them in place)
+        # asks: (V, F) table, (N,) rows
+        lazy: Dict[int, Tuple[Array, Array]] = {}
 
         def elookup(nid):
+            if nid in lazy:
+                table, rows = lazy.pop(nid)
+                eenv[nid] = table[rows]
             return (eenv[nid] if nid in eenv
                     else self.estore[nid][xs["edge_gid"]])
 
         for n in nodes:
             if n.op == "recvSrc":
                 src_nid = self.sp.scatter_value_of[n.id]
+                if src_nid not in senv and "src_gid" in xs:
+                    # no (T, S) replica: each edge reads its global row
+                    lazy[n.id] = (self.vstore[src_nid], xs["src_gid"])
+                    continue
                 base = self.src_value(senv, src_nid, xs["src_ids"])  # (T, S, F)
                 eenv[n.id] = base[xs["tile"], xs["edge_src"]]
             elif n.op == "recvDst":
@@ -382,10 +409,31 @@ class _Interpreter:
                     eenv[n.id] = local[xs["edge_part"], xs["edge_dst"]]
                 else:
                     eenv[n.id] = self.vstore[src_nid][xs["dst_global"]]
+            elif n.op == "bmm_edge":
+                eenv[n.id] = self.bmm_edge(n, xs, elookup, lazy.get(n.inputs[0]))
             else:
                 eenv[n.id] = apply_compute(n.op, n.attrs, self.params,
                                            [elookup(i) for i in n.inputs])
         return eenv, elookup
+
+    def bmm_edge(self, n, xs, elookup, src=None) -> Array:
+        """R-GCN's per-edge, type-selected product over the edges of
+        ``xs``: the relation-grouped edge GEMM, on a plan made once per
+        edge batch and type input (``runner.rel_plan``).  ``src``, a
+        (table, rows) pair, gives the edges' source rows to read in place.
+        Differentiable: its backward runs through the same plan."""
+        types, w = elookup(n.inputs[1]), self.params[n.attrs["weight"]]
+        x = src[0] if src is not None else elookup(n.inputs[0])
+        key = ("rel_plan", n.inputs[1], src is not None)
+        if key not in xs:          # src rows are xs["src_gid"] in every layer
+            with spans.span("runner.rel_plan"):
+                plan = rops.relation_plan(types, w.shape[0])
+                xs[key] = plan if src is None else rops.read_rows(plan, src[1])
+        plan = xs[key]
+        if src is None:
+            x = x.reshape(-1, x.shape[-1])
+        spans.count("runner.edge_gemm_rows", plan.n_edges)
+        return rops.relation_gemm(x, w, plan).reshape(*types.shape[:-1], w.shape[-1])
 
     def src_value(self, senv, nid, rows) -> Array:
         return senv[nid] if nid in senv else self.vstore[nid][rows]
@@ -440,8 +488,10 @@ class _Interpreter:
         scan_gathers = phase.scan_gathers()
         if scan_gathers:
             acc = _init_gather_acc(scan_gathers, n_parts * dmax, dev)
-            for ta, _ in batches:
-                xs = _real_edges(ta, self.pid)
+            for bi, (ta, _) in enumerate(batches):
+                if bi not in self._real:
+                    self._real[bi] = _real_edges(ta, self.pid)
+                xs = self._real[bi]
                 senv = self.eval_source(xs["src_ids"], phase.src.nodes)
                 _, elookup = self.edge_env(phase.edge.nodes, xs, senv)
                 dest = xs["edge_part"] * dmax + xs["edge_dst"]
@@ -498,6 +548,11 @@ class PipelinedRunner:
         self._pad_valid = (self._pad_ids < V)[..., None]      # (P, Dmax, 1)
         self._safe_pad_ids = self._pad_ids.clamp(max=V - 1)
         self._kernels = {g.kernel for ph in self.sp.phases for g in ph.gathers}
+        # the graph's relations that have an edge, where an edge GEMM runs
+        typed = graph.edge_type is not None and any(
+            n.op == "bmm_edge" for ph in self.sp.phases for n in ph.edge.nodes)
+        self._rel_groups = (int(np.count_nonzero(np.bincount(graph.edge_type)))
+                            if typed else 0)
         self._signature = (self.sp.structure_signature(),
                            tiles.shape_signature(), self.reorder_mode)
         self._operands: Optional[Tuple] = None   # lazy bind of ctor tiles
@@ -509,7 +564,8 @@ class PipelinedRunner:
 
     # ------------------------------------------------------------------ bind
     def bind(self, tiles, reordering=None) -> Tuple:
-        """Device operands (tile arrays + kernel constants + permutation) for
+        """Device operands (tile arrays + kernel constants + permutation +
+        the scan gathers' real edges) for
         a tile set structurally identical to the construction one — the
         per-request rebind step the serving cache runs instead of a
         rebuild.  ``reordering`` must realize the runner's reorder mode.
@@ -550,8 +606,11 @@ class PipelinedRunner:
             ran = ran + [st]
         rows = (sum(b.src_ids.size for b in ran),
                 sum(int(b.n_src.sum()) for b in ran))
+        # the scan gathers' real edges, listed here once (the listing syncs)
+        reals = (tuple(_real_edges(ta, "part_id") for ta in tas)
+                 if any(ph.scan_gathers() for ph in self.sp.phases) else None)
         return (tas, kcs, ta0, kc0, _perm_operand(reordering, self.device),
-                rows)
+                reals, rows)
 
     # ------------------------------------------------------------------ run
     def __call__(self, inputs: Dict, params: Dict,
@@ -575,6 +634,9 @@ class PipelinedRunner:
             spans.count("runner.src_rows_padded", padded)
             spans.count("runner.src_rows_real", real)
             spans.count("runner.vertices", V)
+            spans.count("runner.edges", self.graph.n_edges)
+            if self._rel_groups:
+                spans.count("runner.rel_groups", self._rel_groups)
             return self._run(inputs, params, *ops,
                              V <= padded and not records)
 
@@ -584,7 +646,7 @@ class PipelinedRunner:
         (no rebuild: operand shapes are identical by contract)."""
         return self(inputs, params, operands=self.bind(tiles, reordering))
 
-    def _run(self, inputs, params, tas, kcs, ta0, kc0, perm,
+    def _run(self, inputs, params, tas, kcs, ta0, kc0, perm, reals,
              flat: bool) -> List[Array]:
         """One pass.  ``flat``: evaluate each phase's source block once over
         the flat (V, F) store before its tile work, so the batches only
@@ -622,7 +684,7 @@ class PipelinedRunner:
                 if gb.src_value_id is not None:
                     tile_side_reads.add(gb.src_value_id)
         it = _Interpreter(sp, params, vstore, estore, V, dev,
-                          count_src_rows=True)
+                          count_src_rows=True, real=reals)
         batches = list(zip(tas, kcs))
 
         def publish_gather(recv_id, padded_val):
