@@ -16,7 +16,11 @@ Phases, each printing one JSON line or more:
    fields of their rows); the COO SpMM, given its partition runs, and the
    plan-walking kernels, given their plans, run once each with host syncs
    made errors; both segment softmaxes run on per-edge operands (padded
-   slots NaN) against the plan walk; the COO SpMM also runs at the
+   slots NaN) against the plan walk; the CSR kernels take their source
+   operand first as the whole-graph pass gives it, the flat (V, F) store
+   read through global columns (every row no edge names NaN), which the
+   ``kernels`` line times, then as the (T, S, F) replica of its rows, which
+   must give the same bits; the COO SpMM also runs at the
    off-path shapes of ``COO_OFF_PATH``, the softmaxes at those of
    ``SOFTMAX_OFF_PATH``;
 4. serving (COO tiles): ``InferenceServer`` on 2-layer gcn and gat at width
@@ -504,7 +508,7 @@ def scaled_err(got, ref) -> float:
 # phase 3: each kernel against its plain version at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def kernel_checks(serve_tiles, csr_tiles, dev):
+def kernel_checks(serve_tiles, csr_tiles, n_vertices, dev):
     import numpy as np
     import torch
     from repro_torch.kernels.tile_spmm import kernel as K
@@ -556,6 +560,7 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
         emit(dict(phase="kernel_check", **row))
         if primary:
             rows.append(row)
+        return got
 
     # -- COO operands at the serving batch's shapes (phase 4)
     ts = serve_tiles
@@ -614,19 +619,27 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
 
     del adj, xsrc
 
-    def softmax(name, ts, s_e, xsrc, built, primary=True, case=None):
+    def softmax(name, ts, s_e, xsrc, built, primary=True, case=None,
+                col=None, src_rows=None):
         """One segment softmax on tiles ``ts``: per-edge scores ``s_e``
-        (T, E), the tiles' column indices and the source replica ``xsrc``
-        (T, S, F), walking the plan ``built`` (plan, build ms, host syncs)
-        against the plan walk's plain version."""
+        (T, E), the source operand ``xsrc`` and the columns ``col`` that
+        index it (the replica (T, S, F) and the tiles' own columns unless
+        given: the flat store and global columns, reading ``src_rows``
+        distinct rows), walking the plan ``built`` (plan, build ms, host
+        syncs) against the plan walk's plain version.  Returns the kernel's
+        output."""
         plan, plan_ms, plan_syncs = built
         coo = ts.layout == "coo"
         T, E = s_e.shape
-        S, F = xsrc.shape[-2:]
+        x_rows, S = ref._source_rows(xsrc, T)
+        F = x_rows.shape[1]
         P, D = ts.n_dst_parts, int(ts.part_size.max())
         pid = torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev)
         fl = torch.as_tensor(K.tile_flags(ts.part_id), device=dev)
-        col = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
+        if col is None:
+            col = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
+        if src_rows is None:
+            src_rows = int(ts.n_src.sum())
         if coo:
             ed = torch.as_tensor(ts.edge_dst, dtype=torch.int32, device=dev)
             ne = torch.as_tensor(ts.n_edge, dtype=torch.int32, device=dev)
@@ -642,7 +655,8 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
                                                   n_parts=P, plan=plan)
         n_edge = plan.slot.numel()
         chunks = plan.split_ptr.diff()
-        note = dict(T=T, D=D, S=S, E=E, F=F, P=P, layout=ts.layout,
+        note = dict(T=T, D=D, S=ts.s_max, E=E, F=F, P=P, layout=ts.layout,
+                    form="replica" if S else "flat", src_rows=src_rows,
                     edges=n_edge, groups=plan.group_ptr.numel() - 1,
                     zero_rows=plan.zero_row.numel(),
                     split_rows=plan.split_row.numel(),
@@ -664,8 +678,8 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
             sp = torch.sparse_coo_tensor(
                 torch.stack([rows_of[keep], torch.arange(keep.numel(), device=dev)]),
                 s[keep], (P * D, keep.numel())).coalesce()
-            vals = xsrc.reshape(T * S, F)[(slot[keep] // E) * S
-                                          + col.reshape(-1).long()[slot[keep]]]
+            vals = x_rows[(slot[keep] // E) * S
+                          + col.reshape(-1).long()[slot[keep]]]
 
             def library():
                 return torch.sparse.mm(torch.sparse.softmax(sp, 1), vals)
@@ -675,16 +689,17 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
             note["library"] = ("two calls: torch.sparse.softmax over the "
                                "(P*D, edges) score matrix, then torch.sparse.mm "
                                "with the edges' gathered source rows")
-        check(name, kernel,
-              lambda: ref.segment_softmax_plan_ref(plan, col, s_e, xsrc, P, coo=coo),
-              lambda: ref.segment_softmax_plan_ref(plan, col, s_e, xsrc.abs(), P,
-                                                   coo=coo),
-              plan.nbytes + n_edge * 8 + int(ts.n_src.sum()) * F * 4
-              + P * D * F * 4 + plan.n_partial * (F + 2) * 4,
-              n_edge * (2 * F + 3), library=library, note=note,
-              primary=primary, case=case, plan_first_ms=plan_ms[0],
-              plan_ms=plan_ms[-1], plan_host_syncs=plan_syncs,
-              plan_bytes=plan.nbytes, **extra)
+        return check(
+            name, kernel,
+            lambda: ref.segment_softmax_plan_ref(plan, col, s_e, xsrc, P, coo=coo),
+            lambda: ref.segment_softmax_plan_ref(plan, col, s_e, xsrc.abs(), P,
+                                                 coo=coo),
+            plan.nbytes + n_edge * 8 + src_rows * F * 4 + P * D * F * 4
+            + plan.n_partial * (F + 2) * 4,
+            n_edge * (2 * F + 3), library=library, note=note,
+            primary=primary, case=case, plan_first_ms=plan_ms[0],
+            plan_ms=plan_ms[-1], plan_host_syncs=plan_syncs,
+            plan_bytes=plan.nbytes, **extra)
 
     # the softmaxes off the path (SOFTMAX_OFF_PATH), both layouts
     for layout in ("coo", "csr"):
@@ -706,59 +721,88 @@ def kernel_checks(serve_tiles, csr_tiles, dev):
     softmax("segment_softmax", ts, padded_nan(randn(T, E), ts),
             randn(T, S, WIDTH), plan_of(ts))
 
-    # -- CSR operands at the whole-graph phase's shapes (phase 5); padded
-    # edge slots hold NaN, which the kernels must never read
+    # -- CSR operands at the whole-graph phase's shapes (phase 5), first in
+    # the form the whole-graph pass hands the kernels: the flat (V, F) store
+    # read through global columns gcol = src_ids[t, edge_src[t, e]]; then,
+    # as a second case, the (T, S, F) replica of its rows through tile-local
+    # columns, which must give the same bits.  Padded edge slots and every
+    # store row that no edge names hold NaN, which the kernels must never read
     ts = csr_tiles
     T, S, E, P = ts.n_tiles, ts.s_max, ts.e_max, ts.n_dst_parts
     D = int(ts.part_size.max())
     n_edge = int(ts.n_edge.sum())
     n_src = int(ts.n_src.sum())
     part_id = torch.as_tensor(ts.part_id, dtype=torch.int32, device=dev)
-    part_ptr = torch.as_tensor(K.partition_ptr(ts.part_id, P), device=dev)
     flags = torch.as_tensor(K.tile_flags(ts.part_id), device=dev)
     row_ptr = torch.as_tensor(ts.row_ptr, dtype=torch.int32, device=dev)
     col = torch.as_tensor(ts.edge_src, dtype=torch.int32, device=dev)
-    w = padded_nan(randn(T, E), ts)
-    xsrc = randn(T, S, WIDTH)
-    out_bytes = P * D * WIDTH * 4
-    # the library yardstick: one sparse (P*D, T*S) CSR product, built here
-    # from the same edges (only the product is timed)
+    src_ids = torch.as_tensor(ts.src_ids, device=dev).long()
+    gcol = src_ids.gather(1, col.long()).to(torch.int32)
     t_e, slot, dest = ref._csr_edges(row_ptr, part_id, E)
+    named = torch.zeros(n_vertices, dtype=torch.bool, device=dev)
+    named[gcol[t_e, slot].long()] = True
+    n_named = int(named.sum())
+    store = randn(n_vertices, WIDTH).masked_fill_(~named[:, None], float("nan"))
+    xsrc = store[src_ids]
+    w = padded_nan(randn(T, E), ts)
+    out_bytes = P * D * WIDTH * 4
+    # the library yardstick: one sparse (P*D, V) CSR product over the store,
+    # built here from the same edges (only the product is timed)
     sp = torch.sparse_coo_tensor(
-        torch.stack([dest, t_e * S + col.long()[t_e, slot]]), w[t_e, slot],
-        (P * D, T * S)).coalesce().to_sparse_csr()
-    x_flat = xsrc.view(T * S, WIDTH)
+        torch.stack([dest, gcol[t_e, slot].long()]), w[t_e, slot],
+        (P * D, n_vertices)).coalesce().to_sparse_csr()
     # the edge plan, built once per tile set (as PipelinedRunner.bind does):
     # the first build in the process, and a second one
     built = plan_of(ts)
     plan, plan_ms, plan_syncs = built
+    # each form's columns, operand and source rows read (the flat store's
+    # distinct named rows, as the benchmark's roofline counts them; the
+    # replica's real slots)
+    forms = (("flat", gcol, store, n_named), ("replica", col, xsrc, n_src))
+    spmm_out = {}
+    for form, c, x, src_rows in forms:
+        flat = form == "flat"
 
-    def csr_spmm():
-        return K.tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags,
-                                    n_parts=P, plan=plan)
+        def csr_spmm():
+            return K.tile_spmm_csr_cuda(row_ptr, c, w, x, part_id, flags,
+                                        n_parts=P, plan=plan)
 
-    without_host_sync(csr_spmm)
-    check("tile_spmm_csr", csr_spmm,
-          lambda: ref.tile_spmm_csr_ref(row_ptr, col, w, xsrc, part_id, P),
-          lambda: ref.tile_spmm_csr_ref(row_ptr, col, w.abs(), xsrc.abs(),
-                                        part_id, P),
-          plan.nbytes + n_edge * 8 + n_src * WIDTH * 4 + out_bytes,
-          2 * WIDTH * n_edge,
-          library=lambda: torch.sparse.mm(sp, x_flat),
-          note=dict(T=T, D=D, S=S, E=E, F=WIDTH, P=P, edges=n_edge,
-                    groups=plan.group_ptr.shape[0] - 1,
-                    zero_rows=plan.zero_row.shape[0],
-                    split_rows=plan.split_row.shape[0],
-                    partials=plan.n_partial, chunk_size=plan.chunk_size,
-                    library="torch.sparse.mm of the (P*D, T*S) CSR matrix "
-                            "of the same edges"),
-          plan_first_ms=plan_ms[0], plan_ms=plan_ms[1], plan_host_syncs=plan_syncs,
-          plan_bytes=plan.nbytes)
-    del sp, x_flat, w
+        if flat:
+            without_host_sync(csr_spmm)
+        spmm_out[form] = check(
+            "tile_spmm_csr", csr_spmm,
+            lambda: ref.tile_spmm_csr_ref(row_ptr, c, w, x, part_id, P),
+            lambda: ref.tile_spmm_csr_ref(row_ptr, c, w.abs(), x.abs(),
+                                          part_id, P),
+            plan.nbytes + n_edge * 8 + src_rows * WIDTH * 4 + out_bytes,
+            2 * WIDTH * n_edge,
+            library=(lambda: torch.sparse.mm(sp, store)) if flat else None,
+            note=dict(T=T, D=D, S=S, E=E, F=WIDTH, P=P, V=n_vertices,
+                      form=form, src_rows=src_rows, edges=n_edge,
+                      groups=plan.group_ptr.shape[0] - 1,
+                      zero_rows=plan.zero_row.shape[0],
+                      split_rows=plan.split_row.shape[0],
+                      partials=plan.n_partial, chunk_size=plan.chunk_size,
+                      library="torch.sparse.mm of the (P*D, V) CSR matrix "
+                              "of the same edges with the store" if flat
+                      else None),
+            primary=flat, case=form, plan_first_ms=plan_ms[0],
+            plan_ms=plan_ms[1], plan_host_syncs=plan_syncs,
+            plan_bytes=plan.nbytes)
+    require(torch.equal(spmm_out["flat"], spmm_out["replica"]),
+            "tile_spmm_csr: the flat store's output differs from the replica's")
+    del sp, w, spmm_out
 
-    # the CSR softmax on the same tiles, plan and source replica
-    softmax("segment_softmax_csr", ts, padded_nan(randn(T, E), ts), xsrc, built)
-    del xsrc, plan, built
+    # the CSR softmax on the same tiles, plan and operands
+    s_e = padded_nan(randn(T, E), ts)
+    soft_out = {form: softmax("segment_softmax_csr", ts, s_e, x, built,
+                              primary=form == "flat", case=form, col=c,
+                              src_rows=src_rows)
+                for form, c, x, src_rows in forms}
+    require(torch.equal(soft_out["flat"], soft_out["replica"]),
+            "segment_softmax_csr: the flat store's output differs from the "
+            "replica's")
+    del xsrc, store, forms, soft_out, plan, built
     torch.cuda.empty_cache()
     return rows
 
@@ -4068,7 +4112,7 @@ def main() -> int:
                                d_max=int(csr_tiles.part_size.max()))))
 
     # 3. kernel checks
-    rows = kernel_checks(serve_tiles, csr_tiles, dev)
+    rows = kernel_checks(serve_tiles, csr_tiles, dblp.n_vertices, dev)
 
     # 4-5. the main path, with launch counts
     K.reset_launches()

@@ -243,14 +243,15 @@ class _TiledRun:
         if kernel not in self._kc:
             t, P = self.tiles, self.tiles.n_dst_parts
             if kernel == S.KERNEL_SEGMENT_SOFTMAX:
-                self._kc[kernel] = softmax_const(t, P, self.dmax, self.device)
+                self._kc[kernel] = softmax_const(t, self.ta, P, self.dmax,
+                                                 self.device)
             else:
                 self._kc[kernel] = bucket_const(t, self.ta, kernel == S.KERNEL_SPMM,
                                                 P, self.dmax, self.device)
         return self._kc[kernel]
 
     def _run_kernel_gathers(self, phase: S.Phase) -> None:
-        from .pipeline import kernel_gather
+        from .pipeline import kernel_gather, kernel_source
 
         t, ta, V = self.tiles, self.ta, self.graph.n_vertices
         P, dmax = t.n_dst_parts, self.dmax
@@ -262,7 +263,7 @@ class _TiledRun:
         for g in phase.kernel_gathers():
             senv = self._eval_vertex(phase.src.nodes, src_rows)   # (T, S, ...)
             h = (senv[g.src_value_id] if g.src_value_id in senv
-                 else self.vstore[g.src_value_id][src_rows]).contiguous()
+                 else self.vstore[g.src_value_id][src_rows])
             vals = None
             if g.kernel != S.KERNEL_SPMM:
                 _, elookup = self._eval_edge(g.edge_nodes, senv, src_rows, esrc,
@@ -270,8 +271,9 @@ class _TiledRun:
                 vid = (g.score_id if g.kernel == S.KERNEL_SEGMENT_SOFTMAX
                        else g.weight_id)
                 vals = elookup(vid)[..., 0].contiguous()              # (T, E)
-            out = kernel_gather(g.kernel, t.layout, self._operands(g.kernel),
-                                ta, h, vals, P, dmax)
+            kc = self._operands(g.kernel)
+            out = kernel_gather(g.kernel, t.layout, kc, ta,
+                                kernel_source(kc, replica=h), vals, P, dmax)
             # (P, Dmax, F) partition rows -> (V, F); invalid slots land on
             # the sentinel row V
             buf = out.new_zeros((V + 1, out.shape[-1]))

@@ -13,8 +13,14 @@ levels or roles of its own.  Per phase:
 * a gather block tagged ``pallas_segment_softmax`` launches the online
   segment-softmax kernel over the unbucketed tile batch (softmax state
   cannot be merged across buckets) — GAT's three softmax phases in ONE pass,
-  on per-edge scores and the tiles' source replica, walking the batch's
+  on per-edge scores and the batch's source operand, walking the batch's
   edge plan (built at bind, for either layout),
+* the plan-walking kernels (CSR SpMM, either segment softmax) read a
+  stored source value from the flat (V, F) store through the batch's
+  global column ids (``gcol``, made at bind), and a value computed per
+  slot from its (T, S_max, F) replica; the COO SpMM always takes the
+  replica.  An edge block reads a stored source value by each edge's
+  global source row in the same way, so no replica of it is built,
 * ``scan``-tagged gathers (sage, rgcn) fold every tile's edges into the
   shared accumulators with one batched ``index_add_`` /
   ``scatter_reduce_`` per bucket, over each bucket's real edges (listed
@@ -36,16 +42,18 @@ While the recorder (:mod:`repro_torch.spans`) is on, a
 :class:`PipelinedRunner` records ``runner.bind`` (child ``runner.plan``
 around the edge plans and the COO densify) and ``runner.run`` (the host's
 enqueue of the interpreter), and counts the host arrays it uploads
-(``runner.h2d_bytes`` / ``runner.h2d_tensors``) and, each run, the source
-rows its batches' operand gathers and kernels walk (``runner.src_rows_padded``:
-T x S_max of each batch; ``runner.src_rows_real``: the tiles' ``n_src``),
-the rows its source blocks' vertex ops ran over
-(``runner.src_rows_computed``), the graph's vertices and edges
-(``runner.vertices``, ``runner.edges``), and the rows its edge GEMMs ran
-over (``runner.edge_gemm_rows``).  Around the relation grouping it records
-``runner.rel_plan``; for a program with an edge GEMM it counts the graph's
-relations that have an edge (``runner.rel_groups``, from the graph's
-``edge_type`` on the host).
+(``runner.h2d_bytes`` / ``runner.h2d_tensors``) and, each run, the padded
+source slots of its batches, what a per-slot source block computes over
+(``runner.src_rows_padded``: T x S_max of each batch;
+``runner.src_rows_real``: the tiles' ``n_src``), the rows its source
+blocks' vertex ops ran over (``runner.src_rows_computed``), the graph's
+vertices and edges (``runner.vertices``, ``runner.edges``), the rows of
+the (T, S_max, F) source replicas it built for kernel operands and edge
+blocks (``runner.src_rows_replicated``, 0 where none is built), and the
+rows its edge GEMMs ran over (``runner.edge_gemm_rows``).  Around the
+relation grouping it records ``runner.rel_plan``; for a program with an
+edge GEMM it counts the graph's relations that have an edge
+(``runner.rel_groups``, from the graph's ``edge_type`` on the host).
 """
 from __future__ import annotations
 
@@ -138,13 +146,24 @@ def tile_const(ts: TileSet, n_parts: int, device) -> Dict[str, Array]:
     return kc
 
 
-def softmax_const(ts: TileSet, n_parts: int, dmax: int,
-                  device) -> Dict[str, Array]:
+def _global_col(ta: Dict[str, Array]) -> Array:
+    """(T, E) int32 global source row ``src_ids[t, edge_src[t, e]]`` of every
+    edge slot, from the int64 tile arrays ``ta``: the columns through which
+    the plan-walking kernels read the flat (V, F) store and edge blocks read
+    stored source values.  Padded slots name some row too, and are never
+    read."""
+    return ta["src_ids"].gather(1, ta["edge_src"]).to(torch.int32)
+
+
+def softmax_const(ts: TileSet, ta: Dict[str, Array], n_parts: int,
+                  dmax: int, device) -> Dict[str, Array]:
     """Kernel metadata for the segment-softmax batch: the tile constants,
-    the int32 edge lists and the batch's edge plan (built on the device,
-    with the plan's host syncs)."""
+    the int32 edge lists, their global columns (from the int64 tile arrays
+    ``ta``) and the batch's edge plan (built on the device, with the plan's
+    host syncs)."""
     kc = tile_const(ts, n_parts, device)
     kc["col"] = _upload(ts.edge_src, device, torch.int32)
+    kc["gcol"] = _global_col(ta)
     if ts.layout == "csr":
         kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"], n_parts,
                               ts.edge_src.shape[1])
@@ -158,10 +177,12 @@ def softmax_const(ts: TileSet, n_parts: int, dmax: int,
 
 def bucket_const(b: TileSet, ta: Dict[str, Array], with_adj: bool,
                  n_parts: int, dmax: int, device) -> Dict[str, Array]:
-    """Per-bucket kernel metadata for the SpMM blocks: over CSR tiles the
-    CSR plan (built on the device), over COO tiles for pure SpMM the dense
-    adjacency (built on the device from the edge arrays ``ta``)."""
+    """Per-bucket kernel metadata for the SpMM blocks: the global columns
+    (from the edge arrays ``ta``), over CSR tiles the CSR plan (built on the
+    device), over COO tiles for pure SpMM the dense adjacency (built on the
+    device from ``ta``)."""
     kc = tile_const(b, n_parts, device)
+    kc["gcol"] = _global_col(ta)
     if b.layout == "csr":
         kc["plan"] = csr_plan(kc["row_ptr"], kc["part_id"], n_parts,
                               b.edge_src.shape[1])
@@ -173,20 +194,35 @@ def bucket_const(b: TileSet, ta: Dict[str, Array], with_adj: bool,
     return kc
 
 
+def kernel_source(kc: Dict[str, Array], *, store: Optional[Array] = None,
+                  replica: Optional[Array] = None) -> Tuple[Optional[Array], Array]:
+    """A kernel's source operand paired with the columns that index it, the
+    one place the two are matched: the flat (V, F) ``store`` with the
+    batch's global columns ``kc["gcol"]`` (for the plan-walking kernels
+    alone), or the (T, S, F) ``replica`` with its tile-local ``kc["col"]``
+    (``None`` for the COO SpMM, which multiplies dense blocks).  Give one
+    of the two."""
+    if store is not None:
+        return kc["gcol"], store.contiguous()
+    return kc.get("col"), replica.contiguous()
+
+
 def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
-                  ta: Dict[str, Array], h: Array, vals: Optional[Array],
-                  n_parts: int, dmax: int) -> Array:
-    """One kernel-tagged gather block over a tile batch: the source replica
-    ``h`` (T, S, F), per-edge ``vals`` (T, E) — scores for the segment
-    softmax, weights for weighted SpMM, ``None`` for pure SpMM — and the
-    batch's operands ``kc`` (:func:`softmax_const` / :func:`bucket_const`)
-    and int64 tile arrays ``ta``.  Returns (P, Dmax, F); partitions without
-    a tile in the batch are zero.
+                  ta: Dict[str, Array], src: Tuple[Optional[Array], Array],
+                  vals: Optional[Array], n_parts: int, dmax: int) -> Array:
+    """One kernel-tagged gather block over a tile batch: the source operand
+    and its columns ``src`` (:func:`kernel_source`), per-edge ``vals``
+    (T, E) — scores for the segment softmax, weights for weighted SpMM,
+    ``None`` for pure SpMM — and the batch's operands ``kc``
+    (:func:`softmax_const` / :func:`bucket_const`) and int64 tile arrays
+    ``ta``.  Returns (P, Dmax, F); partitions without a tile in the batch
+    are zero.
 
     The kernels have no backward, as the reference's have none: where
     autograd records and ``h`` or ``vals`` requires grad, this raises
     ``NotImplementedError`` on every device, as the reference's ``jax.grad``
     does through its kernel blocks."""
+    col, h = src
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (h, vals)):
         raise NotImplementedError(
@@ -194,14 +230,14 @@ def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
             "flow through a tile kernel; build the runner with "
             "kernel_dispatch=False to train through the scan path")
     if kernel == S.KERNEL_SEGMENT_SOFTMAX:
-        # the kernel walks the edge plan and gathers h[t, edge_src] itself:
-        # no dense score block, no (T, E, F) value block; a partition
-        # without a tile has only zero rows in the plan
+        # the kernel walks the edge plan and gathers each edge's source row
+        # itself: no dense score block, no (T, E, F) value block; a
+        # partition without a tile has only zero rows in the plan
         if layout == "csr":
-            return tops.gat_aggregate_csr(kc["row_ptr"], kc["col"], vals, h,
+            return tops.gat_aggregate_csr(kc["row_ptr"], col, vals, h,
                                           kc["part_id"], kc["flags"],
                                           n_parts=n_parts, plan=kc["plan"])
-        return tops.gat_aggregate(kc["edge_dst"], kc["n_edge"], kc["col"], vals,
+        return tops.gat_aggregate(kc["edge_dst"], kc["n_edge"], col, vals,
                                   h, kc["part_id"], kc["flags"], n_parts=n_parts,
                                   dmax=dmax, plan=kc["plan"])
     if vals is not None:                       # padded edge slots weigh 0
@@ -210,7 +246,7 @@ def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
         vals = torch.where(emask, vals, 0.0)
     if layout == "csr":
         w = torch.ones(ta["edge_src"].shape, device=h.device) if vals is None else vals
-        return tops.spmm_csr(kc["row_ptr"], kc["col"], w, h, kc["part_id"],
+        return tops.spmm_csr(kc["row_ptr"], col, w, h, kc["part_id"],
                              kc["flags"], n_parts=n_parts, plan=kc["plan"])
     adj = kc["adj"] if vals is None else tops.densify_edge_weights(
         vals, ta["edge_dst"], ta["edge_src"], ta["n_edge"], dmax=dmax,
@@ -222,13 +258,17 @@ def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
     return torch.where(kc["pmask"][:, None, None], out, 0.0)
 
 
-def _with_dst(ta: Dict[str, Array], V: int, pid: str) -> Dict[str, Array]:
+def _with_dst(ta: Dict[str, Array], V: int, pid: str,
+              kc: Dict[str, Array]) -> Dict[str, Array]:
     """Tile operands plus, for every (T, E) edge slot, its global
-    destination row (padded slots clamped to V - 1), and (T, 1) tile and
-    padded-layout partition (``ta[pid]``) indices for batched gathers."""
+    destination row (padded slots clamped to V - 1) and global source row
+    (``src_gid``: the batch's ``kc["gcol"]``, made at bind), and (T, 1)
+    tile and padded-layout partition (``ta[pid]``) indices for batched
+    gathers."""
     xs = dict(ta)
     xs["dst_global"] = (ta["part_start"][ta["part_id"]][:, None]
                         + ta["edge_dst"]).clamp(max=V - 1)
+    xs["src_gid"] = kc["gcol"]
     xs["tile"] = torch.arange(ta["part_id"].shape[0],
                               device=ta["part_id"].device)[:, None]
     xs["edge_part"] = ta[pid][:, None]
@@ -395,7 +435,7 @@ class _Interpreter:
         for n in nodes:
             if n.op == "recvSrc":
                 src_nid = self.sp.scatter_value_of[n.id]
-                if src_nid not in senv and "src_gid" in xs:
+                if src_nid not in senv:
                     # no (T, S) replica: each edge reads its global row
                     lazy[n.id] = (self.vstore[src_nid], xs["src_gid"])
                     continue
@@ -436,7 +476,22 @@ class _Interpreter:
         return rops.relation_gemm(x, w, plan).reshape(*types.shape[:-1], w.shape[-1])
 
     def src_value(self, senv, nid, rows) -> Array:
+        """The (T, S, F) replica of source value ``nid`` over a batch's
+        slots ``rows``: computed per slot (``senv``) or gathered from the
+        store.  With ``count_src_rows``, counts its rows
+        (``runner.src_rows_replicated``)."""
+        if self.count_src_rows:
+            spans.count("runner.src_rows_replicated", rows.numel())
         return senv[nid] if nid in senv else self.vstore[nid][rows]
+
+    def source_operand(self, senv, nid, rows, kc, plan_walk: bool):
+        """A kernel's source operand and its columns (:func:`kernel_source`):
+        the flat (V, F) store where the kernel walks an edge plan
+        (``plan_walk``) and the value is stored, else the replica
+        (:meth:`src_value`)."""
+        if plan_walk and nid not in senv:
+            return kernel_source(kc, store=self.vstore[nid])
+        return kernel_source(kc, replica=self.src_value(senv, nid, rows))
 
     def edge_values(self, g, vid, xs, senv) -> Array:
         """(T, E) per-edge values ``vid`` of a kernel gather."""
@@ -457,15 +512,15 @@ class _Interpreter:
 
         for g in phase.kernel_gathers():
             if g.kernel == S.KERNEL_SEGMENT_SOFTMAX:
-                # per-edge scores and the source replica h (T, S, F) of the
+                # per-edge scores and the source operand h of the
                 # unbucketed batch
                 ta0, kc0 = softmax
-                xs0 = _with_dst(ta0, V, self.pid)
+                xs0 = _with_dst(ta0, V, self.pid, kc0)
                 senv = self.eval_source(xs0["src_ids"], phase.src.nodes)
-                h = self.src_value(senv, g.src_value_id,
-                                   xs0["src_ids"]).contiguous()
+                src = self.source_operand(senv, g.src_value_id, xs0["src_ids"],
+                                          kc0, True)
                 scores = self.edge_values(g, g.score_id, xs0, senv)
-                done(g, kernel_gather(g.kernel, layout, kc0, ta0, h, scores,
+                done(g, kernel_gather(g.kernel, layout, kc0, ta0, src, scores,
                                       n_parts, dmax))
                 continue
             # SpMM variants: one kernel call per size bucket, partition
@@ -473,12 +528,12 @@ class _Interpreter:
             total = torch.zeros((n_parts, dmax, g.acc.dim), device=dev)
             for ta, kc in batches:
                 senv = self.eval_source(ta["src_ids"], phase.src.nodes)
-                xsrc = self.src_value(senv, g.src_value_id,
-                                      ta["src_ids"]).contiguous()
+                src = self.source_operand(senv, g.src_value_id, ta["src_ids"],
+                                          kc, layout == "csr")
                 w = (None if g.kernel == S.KERNEL_SPMM else
                      self.edge_values(g, g.weight_id,
-                                      _with_dst(ta, V, self.pid), senv))
-                total += kernel_gather(g.kernel, layout, kc, ta, xsrc, w,
+                                      _with_dst(ta, V, self.pid, kc), senv))
+                total += kernel_gather(g.kernel, layout, kc, ta, src, w,
                                        n_parts, dmax)
             done(g, total)
 
@@ -601,8 +656,8 @@ class PipelinedRunner:
             st = tiles.source if isinstance(tiles, BucketedTileSet) else tiles
             ta0 = _tile_arrays(st, self.device)
             with spans.span("runner.plan"):
-                kc0 = softmax_const(st, self.tiles.n_dst_parts, self.dmax,
-                                    self.device)
+                kc0 = softmax_const(st, ta0, self.tiles.n_dst_parts,
+                                    self.dmax, self.device)
             ran = ran + [st]
         rows = (sum(b.src_ids.size for b in ran),
                 sum(int(b.n_src.sum()) for b in ran))
@@ -635,6 +690,8 @@ class PipelinedRunner:
             spans.count("runner.src_rows_real", real)
             spans.count("runner.vertices", V)
             spans.count("runner.edges", self.graph.n_edges)
+            # present in every run: 0 where every source operand is flat
+            spans.count("runner.src_rows_replicated", 0)
             if self._rel_groups:
                 spans.count("runner.rel_groups", self._rel_groups)
             return self._run(inputs, params, *ops,
@@ -1198,10 +1255,11 @@ class ShardedRunner:
                 sops["buckets"].append((ta, kc))
             if "softmax" in ops:
                 stk = ops["softmax"]
-                sops["softmax"] = (shard_batch(stk, k, dev), real_pmask(
+                ta = shard_batch(stk, k, dev)
+                sops["softmax"] = (ta, real_pmask(
                     softmax_const(_shard_tileset(_source_tileset(tiles), stk,
-                                                 k, plan), P_loc, dmax, dev),
-                    stk, k, dev))
+                                                 k, plan), ta, P_loc, dmax,
+                                  dev), stk, k, dev))
             out.append(sops)
         return out
 

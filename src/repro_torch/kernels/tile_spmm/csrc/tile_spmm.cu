@@ -268,7 +268,10 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
 
 // Group g = plan edges [group_ptr[g], group_ptr[g+1]); slot[i] = t E + e
 // and edge_tgt[i] = target row (bit 31: last edge of its chunk) of plan
-// edge i.  Warps n_group + z write zero_row[32 z ...].  x (T, S, F); out
+// edge i.  Warps n_group + z write zero_row[32 z ...].  Edge slot s reads
+// source row (s / E) S + col_idx[s] of x: the tiles' replica (T, S, F)
+// with tile-local columns, or the flat (V, F) store with global columns
+// and S = 0, which reads the same rows with no replica built.  out
 // (n_rows + partials, F).  Lane l holds columns [col, col + VEC), col =
 // (blockIdx.y 32 + l) VEC.
 template <int VEC>
@@ -392,8 +395,9 @@ csr_merge_kernel(const int* __restrict__ split_row,
 //    and both (T, E, F) values gathered beforehand.  Here both layouts walk
 //    the edge plan of kernel 2 (the plan builder, csr_plan or coo_plan in
 //    plan.py, does the layout's work once per tile set), read per-edge
-//    scores and column indices, and gather the source rows from the replica
-//    x (T, S, F) themselves: neither block exists.  One warp takes one plan
+//    scores and column indices, and gather the source rows themselves, from
+//    the replica x (T, S, F) or, with global columns and S = 0, from the
+//    flat (V, F) store (as kernel 2): neither block exists.  One warp takes one plan
 //    group (whole chunks of at most 128 edges of one row, ~32 edges a warp).
 //    For 32 edges at a time each lane loads an edge's slot, target, score
 //    and column; a segmented warp scan takes the max of each chunk's piece

@@ -7,8 +7,12 @@ contiguity, allocates the output with ``torch.empty`` and launches on
 PyTorch's current stream.  ``flags`` (the TPU's FIRST/LAST markers) is
 shape-checked only: the CUDA kernels walk partition runs ``part_ptr`` or
 an edge plan instead.  The segment softmaxes take per-edge operands, not
-the TPU's: scores (T, E), ``col`` (T, E) and the source replica ``xsrc``
-(T, S, F) in place of a dense score block and gathered (T, E, F) values.
+the TPU's: scores (T, E), ``col`` (T, E) and the source operand ``xsrc``
+in place of a dense score block and gathered (T, E, F) values.  The
+plan-walking kernels take their source operand in one of two forms, told
+apart by its shape: the tiles' replica (T, S, F), which tile-local
+``col`` indexes (row ``t S + col``), or the flat (V, F) store, which
+global ``col`` (``src_ids[t, edge_src[t, e]]``) indexes (tile stride 0).
 A caller that binds once passes ``part_ptr=`` (built on the host by
 :func:`partition_ptr`) and the ``plan=`` (:mod:`.plan`); a wrapper given
 neither derives it on the device, which syncs the host
@@ -149,6 +153,18 @@ def _check_plan(plan: EdgePlan, n_rows: int, device: torch.device):
     return n_group, n_zero, n_split
 
 
+def _source(xsrc, T: int, device: torch.device):
+    """(tile stride S, F) of a plan-walking kernel's source operand: the
+    replica (T, S, F), tile t's rows starting at t S, or the flat (V, F)
+    store that global column ids index, stride 0."""
+    if xsrc.dim() == 2:
+        _check("xsrc", xsrc, torch.float32, tuple(xsrc.shape), device)
+        return 0, xsrc.shape[1]
+    S, F = xsrc.shape[-2:]
+    _check("xsrc", xsrc, torch.float32, (T, S, F), device)
+    return S, F
+
+
 def _launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -183,18 +199,18 @@ def tile_spmm_cuda(adj, xsrc, part_id, flags, *, n_parts: int,
 def tile_spmm_csr_cuda(row_ptr, col, w, xsrc, part_id, flags, *,
                        n_parts: int, plan: Optional[EdgePlan] = None) -> torch.Tensor:
     """CSR tile SpMM: row_ptr (T, D+1) and col (T, E) int32; w (T, E);
-    xsrc (T, S, F).  Returns (P, D, F); padded edge slots are never read.
-    ``plan`` is the tile set's :class:`~.plan.EdgePlan` (built here, with a
-    host sync, when absent); it holds the partition runs, so this wrapper
-    takes no ``part_ptr``."""
+    xsrc the replica (T, S, F) with tile-local ``col``, or the flat (V, F)
+    store with global ``col``.  Returns (P, D, F); padded edge slots are
+    never read.  ``plan`` is the tile set's :class:`~.plan.EdgePlan` (built
+    here, with a host sync, when absent); it holds the partition runs, so
+    this wrapper takes no ``part_ptr``."""
     dev = _device_of(row_ptr)
     T, E = col.shape
     D = row_ptr.shape[1] - 1
-    S, F = xsrc.shape[-2:]
     _check("row_ptr", row_ptr, torch.int32, (T, D + 1), dev)
     _check("col", col, torch.int32, (T, E), dev)
     _check("w", w, torch.float32, (T, E), dev)
-    _check("xsrc", xsrc, torch.float32, (T, S, F), dev)
+    S, F = _source(xsrc, T, dev)
     _check("part_id", part_id, torch.int32, (T,), dev)
     _check("flags", flags, torch.int32, (T,), dev)
     if plan is None:
@@ -217,7 +233,7 @@ def _segment_softmax(kernel: str, coo: bool, plan: EdgePlan, col, scores,
     """Launch the plan-walking softmax (one C entry point, ``coo`` picks the
     liveness rule) and return the (P, D, F) output."""
     T, E = scores.shape
-    S, F = xsrc.shape[-2:]
+    S, F = _source(xsrc, T, dev)
     n_rows = n_parts * D
     n_group, n_zero, n_split = _check_plan(plan, n_rows, dev)
     # the split rows' partial (acc; m, l) live in rows past the output
@@ -239,19 +255,19 @@ def segment_softmax_cuda(edge_dst, n_edge, col, scores, xsrc, part_id, flags,
     """COO online segment softmax on per-edge operands: edge_dst, col
     (T, E) int32 and n_edge (T,) int32 (the tiles' edge lists); scores
     (T, E) float32, an edge counting where its score is above -1e29; xsrc
-    (T, S, F).  Returns (P, dmax, F): out[p, d] = sum over the edges of
-    row d in p's tiles of softmax(score) * xsrc[t, col[t, e]], 0 for a row
-    with no live edge.  ``plan`` is the tiles' :func:`~.plan.coo_plan`
-    (built here, with host syncs, when absent).  Padded slots are never
-    read."""
+    the replica (T, S, F) or the flat (V, F) store, as ``col`` is local or
+    global.  Returns (P, dmax, F): out[p, d] = sum over the edges of row d
+    in p's tiles of softmax(score) * xsrc[t, col[t, e]] (xsrc[col[t, e]]),
+    0 for a row with no live edge.  ``plan`` is the tiles'
+    :func:`~.plan.coo_plan` (built here, with host syncs, when absent).
+    Padded slots are never read."""
     dev = _device_of(scores)
     T, E = scores.shape
-    S, F = xsrc.shape[-2:]
     _check("edge_dst", edge_dst, torch.int32, (T, E), dev)
     _check("n_edge", n_edge, torch.int32, (T,), dev)
     _check("col", col, torch.int32, (T, E), dev)
     _check("scores", scores, torch.float32, (T, E), dev)
-    _check("xsrc", xsrc, torch.float32, (T, S, F), dev)
+    _source(xsrc, T, dev)
     _check("part_id", part_id, torch.int32, (T,), dev)
     _check("flags", flags, torch.int32, (T,), dev)
     if plan is None:
@@ -264,17 +280,17 @@ def segment_softmax_csr_cuda(row_ptr, col, scores, xsrc, part_id, flags, *,
                              n_parts: int,
                              plan: Optional[EdgePlan] = None) -> torch.Tensor:
     """CSR online segment softmax: row_ptr (T, D+1) and col (T, E) int32;
-    scores (T, E); xsrc (T, S, F).  Returns (P, D, F), every real slot
+    scores (T, E); xsrc the replica (T, S, F) or the flat (V, F) store, as
+    ``col`` is local or global.  Returns (P, D, F), every real slot
     counting.  ``plan`` is the tiles' :func:`~.plan.csr_plan` (built here,
     with host syncs, when absent)."""
     dev = _device_of(row_ptr)
     T, E = col.shape
     D = row_ptr.shape[1] - 1
-    S, F = xsrc.shape[-2:]
     _check("row_ptr", row_ptr, torch.int32, (T, D + 1), dev)
     _check("col", col, torch.int32, (T, E), dev)
     _check("scores", scores, torch.float32, (T, E), dev)
-    _check("xsrc", xsrc, torch.float32, (T, S, F), dev)
+    _source(xsrc, T, dev)
     _check("part_id", part_id, torch.int32, (T,), dev)
     _check("flags", flags, torch.int32, (T,), dev)
     if plan is None:

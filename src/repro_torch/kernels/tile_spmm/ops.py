@@ -10,7 +10,11 @@ port takes it.  ``spmm`` / ``gat_aggregate`` / ``spmm_csr`` /
 take the plain PyTorch version (``ref.py``), CUDA tensors launch the
 hand-written kernel (``kernel.py``), which raises rather than falling back.
 The runner passes what it built at bind time: ``part_ptr`` (partition
-runs) for the COO SpMM and the edge ``plan`` for the others.
+runs) for the COO SpMM and the edge ``plan`` for the others.  The
+plan-walking entry points take the source operand ``xsrc`` as the tiles'
+replica (T, S, F) with tile-local ``col``, or as the flat (V, F) store with
+global ``col`` (``src_ids[t, edge_src[t, e]]``); the COO SpMM multiplies
+dense blocks, so it takes the replica alone.
 """
 from __future__ import annotations
 
@@ -116,7 +120,8 @@ def gat_aggregate(edge_dst, n_edge, col, scores, xsrc, part_id, flags, *,
                   n_parts: int, dmax: int,
                   plan: Optional[EdgePlan] = None) -> torch.Tensor:
     """COO online segment softmax on per-edge operands: edge_dst/col/scores
-    (T, E), n_edge (T,), xsrc (T, S, F).  ``plan`` (:func:`~.plan.coo_plan`
+    (T, E), n_edge (T,), xsrc (T, S, F) or (V, F), as ``col`` is tile-local
+    or global.  ``plan`` (:func:`~.plan.coo_plan`
     of these tiles): the CUDA kernel walks it; on the CPU the plain version
     walks it the same way."""
     if scores.device.type == "cpu":
@@ -136,8 +141,9 @@ def gat_aggregate(edge_dst, n_edge, col, scores, xsrc, part_id, flags, *,
 
 def spmm_csr(row_ptr, col, w, xsrc, part_id, flags, *, n_parts: int,
              plan: Optional[EdgePlan] = None) -> torch.Tensor:
-    """``plan`` (:func:`~.plan.csr_plan` of these tiles): the CUDA kernel
-    walks it; on the CPU the plain version walks it the same way."""
+    """col/w (T, E); xsrc (T, S, F) or (V, F), as ``col`` is tile-local or
+    global.  ``plan`` (:func:`~.plan.csr_plan` of these tiles): the CUDA
+    kernel walks it; on the CPU the plain version walks it the same way."""
     if row_ptr.device.type == "cpu":
         if plan is not None:
             return R.tile_spmm_csr_plan_ref(plan, col, w, xsrc, n_parts)
@@ -149,8 +155,8 @@ def spmm_csr(row_ptr, col, w, xsrc, part_id, flags, *, n_parts: int,
 def gat_aggregate_csr(row_ptr, col, scores, xsrc, part_id, flags, *,
                       n_parts: int,
                       plan: Optional[EdgePlan] = None) -> torch.Tensor:
-    """CSR online segment softmax: col/scores (T, E), xsrc (T, S, F);
-    ``plan`` as for :func:`spmm_csr`."""
+    """CSR online segment softmax: col/scores (T, E), xsrc (T, S, F) or
+    (V, F); ``plan`` as for :func:`spmm_csr`."""
     if row_ptr.device.type == "cpu":
         if plan is not None:
             return R.segment_softmax_plan_ref(plan, col, scores, xsrc, n_parts,

@@ -7,8 +7,11 @@ slots (``e < row_ptr[t, -1]`` or ``e < n_edge[t]``) before touching any
 value, so padded slots may hold NaN, and they never build the TPU's dense
 (T, D, E) score block or row selector.  ``tile_spmm_csr_plan_ref`` and
 ``segment_softmax_plan_ref`` walk an :class:`~.plan.EdgePlan` as the CUDA
-kernels walk it.  ``segment_softmax_ref`` keeps ``repro``'s dense COO
-operands: the counterpart of its function, off the runner's path.
+kernels walk it.  The edge-list and plan versions take the source operand
+in either of the kernels' forms: the replica (T, S, F) with tile-local
+``col``, or the flat (V, F) store with global ``col``.
+``segment_softmax_ref`` keeps ``repro``'s dense COO operands: the
+counterpart of its function, off the runner's path.
 """
 from __future__ import annotations
 
@@ -47,12 +50,30 @@ def _coo_edges(edge_dst, n_edge, part_id, dmax: int):
     return t, slot, part_id.long()[t] * dmax + edge_dst.long()[t, slot]
 
 
+def _source_rows(xsrc, T: int):
+    """The kernels' view of a source operand: (rows, tile stride S), the
+    replica (T, S, F) as its (T S, F) rows, or the flat (V, F) store as it
+    is, stride 0.  Edge e of tile t reads row ``t S + col[t, e]``."""
+    if xsrc.dim() == 2:
+        return xsrc.float(), 0
+    S, F = xsrc.shape[-2:]
+    return xsrc.reshape(T * S, F).float(), S
+
+
+def _edge_rows(t, slot, col, xsrc):
+    """The source row of every listed edge (tile ``t``, slot ``slot``):
+    (n_edge, F)."""
+    rows, S = _source_rows(xsrc, col.shape[0])
+    return rows[t * S + col.long()[t, slot]]
+
+
 def tile_spmm_csr_ref(row_ptr, col, w, xsrc, part_id, n_parts: int) -> torch.Tensor:
-    """CSR version: row_ptr (T, D+1); col/w (T, E); xsrc (T, S, F)."""
+    """CSR version: row_ptr (T, D+1); col/w (T, E); xsrc (T, S, F) or
+    (V, F)."""
     D = row_ptr.shape[1] - 1
     F = xsrc.shape[-1]
     t, slot, dest = _csr_edges(row_ptr, part_id, col.shape[1])
-    msg = w.float()[t, slot, None] * xsrc.float()[t, col.long()[t, slot]]
+    msg = w.float()[t, slot, None] * _edge_rows(t, slot, col, xsrc)
     out = torch.zeros((n_parts * D, F), dtype=torch.float32, device=xsrc.device)
     return out.index_add_(0, dest, msg).view(n_parts, D, F)
 
@@ -61,12 +82,13 @@ def tile_spmm_csr_plan_ref(plan, col, w, xsrc, n_parts: int) -> torch.Tensor:
     """The CSR SpMM as the kernel walks it: every edge of ``plan``
     (:class:`~.plan.CsrPlan`) adds into its chunk's target row, rows with
     no edge stay 0, then each split row sums its partial rows.  col/w
-    (T, E); xsrc (T, S, F)."""
+    (T, E); xsrc (T, S, F) or (V, F)."""
     T, E = col.shape
-    S, F = xsrc.shape[-2:]
+    rows, S = _source_rows(xsrc, T)
+    F = rows.shape[1]
     slot = plan.slot.long()
     src = (slot // E) * S + col.reshape(-1).long()[slot]
-    msg = w.reshape(-1).float()[slot, None] * xsrc.reshape(T * S, F).float()[src]
+    msg = w.reshape(-1).float()[slot, None] * rows[src]
     buf = torch.zeros((plan.n_rows + plan.n_partial, F), dtype=torch.float32,
                       device=xsrc.device)
     buf.index_add_(0, plan.edge_tgt.long() & 0x7FFFFFFF, msg)
@@ -96,16 +118,12 @@ def _edge_softmax(dest, s, x, n_rows: int, coo: bool):
     return m, den, acc
 
 
-def _edge_rows(t, slot, col, xsrc):
-    """xsrc[t, col[t, slot]] for every listed edge: (n_edge, F)."""
-    return xsrc.float()[t, col.long()[t, slot]]
-
-
 def segment_softmax_csr_ref(row_ptr, col, scores, xsrc, part_id,
                             n_parts: int) -> torch.Tensor:
     """CSR softmax: row_ptr (T, D+1); col/scores (T, E) per edge; xsrc
-    (T, S, F).  out[p, d] = sum over the edges of row d in p's tiles of
-    softmax(score) * xsrc[t, col[t, e]]; every real slot counts."""
+    (T, S, F) or (V, F).  out[p, d] = sum over the edges of row d in p's
+    tiles of softmax(score) * xsrc[t, col[t, e]] (xsrc[col[t, e]]); every
+    real slot counts."""
     D = row_ptr.shape[1] - 1
     t, slot, dest = _csr_edges(row_ptr, part_id, scores.shape[1])
     _, den, acc = _edge_softmax(dest, scores[t, slot], _edge_rows(t, slot, col, xsrc),
@@ -116,7 +134,8 @@ def segment_softmax_csr_ref(row_ptr, col, scores, xsrc, part_id,
 def segment_softmax_coo_ref(edge_dst, n_edge, col, scores, xsrc, part_id,
                             n_parts: int, dmax: int) -> torch.Tensor:
     """COO softmax on per-edge operands: edge_dst/col/scores (T, E), n_edge
-    (T,), xsrc (T, S, F); an edge counts where its score is above -1e29.
+    (T,), xsrc (T, S, F) or (V, F); an edge counts where its score is above
+    -1e29.
     The same function as :func:`segment_softmax_ref` on the densified
     scores and ``vals = xsrc[t, col]``."""
     t, slot, dest = _coo_edges(edge_dst, n_edge, part_id, dmax)
@@ -131,12 +150,13 @@ def segment_softmax_plan_ref(plan, col, scores, xsrc, n_parts: int, *,
     every chunk folds its edges into a partial (m, l, acc) on its target
     row; an unsplit row is acc / max(l, 1e-30), a split row merges its
     chunks' partials (m = max m_k, l = sum l_k e^(m_k - m), acc likewise)
-    first.  col/scores (T, E); xsrc (T, S, F); ``coo`` picks the liveness
-    rule."""
+    first.  col/scores (T, E); xsrc (T, S, F) or (V, F); ``coo`` picks the
+    liveness rule."""
     T, E = col.shape
-    S, F = xsrc.shape[-2:]
+    rows, S = _source_rows(xsrc, T)
+    F = rows.shape[1]
     slot = plan.slot.long()
-    x = xsrc.reshape(T * S, F)[(slot // E) * S + col.reshape(-1).long()[slot]]
+    x = rows[(slot // E) * S + col.reshape(-1).long()[slot]]
     m, den, acc = _edge_softmax(plan.edge_tgt.long() & 0x7FFFFFFF,
                                 scores.reshape(-1)[slot], x,
                                 plan.n_rows + plan.n_partial, coo=coo)

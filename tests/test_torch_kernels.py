@@ -2,8 +2,11 @@
 Pallas kernels (interpret mode), on the `test_kernels.py` shapes.
 
 The port's segment softmaxes take per-edge operands (scores, the tiles'
-column indices, the source replica); `repro`'s take a dense score block
+column indices, the source operand); `repro`'s take a dense score block
 (COO) and gathered (T, E, F) values, built here from the same numpy inputs.
+The plan-walking versions take the source operand in two forms, the
+tiles' replica with tile-local columns or the flat store with global ones;
+the plan-walk tests run both and hold them to the same bits.
 
 The CUDA kernels themselves run only on a card (`chip_smoke.py` holds each
 against these plain versions there); on the CPU the dispatchers in
@@ -131,6 +134,24 @@ def _softmax_operands(ts):
             _t(tkernel.tile_flags(ts.part_id), torch.int32))
 
 
+FORMS = ["replica", "flat"]
+
+
+def _flat_source(ts, x):
+    """The flat-store form of the source operand over features ``x``
+    (V, F): the store, with NaN in every row no real edge names and in two
+    rows past V, and the (T, E) int32 global columns ``src_ids[t,
+    edge_src[t, e]]``, each padded slot naming a NaN row."""
+    V, F = x.shape
+    gcol = np.take_along_axis(ts.src_ids, ts.edge_src, axis=1)
+    real = np.arange(ts.edge_src.shape[1])[None, :] < ts.n_edge[:, None]
+    named = np.unique(gcol[real])
+    store = np.full((V + 2, F), np.nan, np.float32)
+    store[named] = x[named]
+    assert np.isnan(store).any(axis=1).sum() >= 2
+    return _t(store), _t(np.where(real, gcol, V + 1), torch.int32)
+
+
 def _softmax_plan(ts, chunk_size=CHUNK_SIZE):
     lay, _, pid, _ = _softmax_operands(ts)
     if ts.layout == "csr":
@@ -139,10 +160,12 @@ def _softmax_plan(ts, chunk_size=CHUNK_SIZE):
                     chunk_size=chunk_size)
 
 
-def _port_softmax(ts, scores, xs, plan=None):
+def _port_softmax(ts, scores, xs, plan=None, col=None):
     """The port's softmax entry point for ``ts``'s layout (CPU: the plan
-    walk when ``plan`` is given, else the edge list)."""
-    lay, col, pid, flags = _softmax_operands(ts)
+    walk when ``plan`` is given, else the edge list); ``col`` replaces the
+    tile-local columns (global ones, for the flat store ``xs``)."""
+    lay, local, pid, flags = _softmax_operands(ts)
+    col = local if col is None else col
     if ts.layout == "csr":
         return tsoftmax.gat_aggregate_csr(*lay, col, _t(scores), _t(xs), pid, flags,
                                           n_parts=ts.n_dst_parts, plan=plan).numpy()
@@ -423,26 +446,38 @@ def test_csr_plan_chunks_stay_in_one_row(case, chunk_size):
     assert LAST == -2 ** 31
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("chunk_size", [4, 128])
 @pytest.mark.parametrize("case", PLAN_CASES, ids=PLAN_IDS)
-def test_csr_plan_walk_matches_reference_and_pallas(case, chunk_size, rng):
+def test_csr_plan_walk_matches_reference_and_pallas(case, chunk_size, form, rng):
     """The plain walk of the plan (what the CUDA kernel computes) against
     the port's and repro's plain versions and the Pallas kernel, with NaN
-    in every padded slot."""
+    in every padded slot.  In the flat form (the store, NaN in every row
+    no edge names, and global columns) both plain versions give the
+    replica's bits."""
     g, cs = _plan_graph(case)
     F = 8
     x = rng.standard_normal((g.n_vertices, F)).astype(np.float32)
     w_g = rng.standard_normal(g.n_edges).astype(np.float32)
     xs = np.asarray(jops.gather_sources(cs, x))
     w = _per_edge(cs, w_g, poison=np.nan)
-    args = (_t(cs.row_ptr, torch.int32), _t(cs.edge_src, torch.int32), _t(w),
-            _t(xs), _t(cs.part_id, torch.int32))
+    rp, pid = _t(cs.row_ptr, torch.int32), _t(cs.part_id, torch.int32)
+    args = (rp, _t(cs.edge_src, torch.int32), _t(w), _t(xs), pid)
     flags = jkernel.tile_flags(cs.part_id)
-    got = tops.spmm_csr(*args, _t(flags, torch.int32), n_parts=cs.n_dst_parts,
-                        plan=_plan(cs, chunk_size)).numpy()
+    plan = _plan(cs, chunk_size)
+    walk = tops.spmm_csr(*args, _t(flags, torch.int32), n_parts=cs.n_dst_parts,
+                         plan=plan)
+    edges = tref.tile_spmm_csr_ref(*args, cs.n_dst_parts)
+    if form == "flat":
+        store, gcol = _flat_source(cs, x)
+        fargs = (rp, gcol, _t(w), store, pid)
+        flat_walk = tops.spmm_csr(*fargs, _t(flags, torch.int32),
+                                  n_parts=cs.n_dst_parts, plan=plan)
+        assert torch.equal(flat_walk, walk)
+        assert torch.equal(tref.tile_spmm_csr_ref(*fargs, cs.n_dst_parts), edges)
+    got = walk.numpy()
     assert np.isfinite(got).all()
-    np.testing.assert_allclose(
-        got, tref.tile_spmm_csr_ref(*args, cs.n_dst_parts).numpy(), **TOL)
+    np.testing.assert_allclose(got, edges.numpy(), **TOL)
     w0 = _per_edge(cs, w_g, poison=0.0)    # the JAX versions multiply padding
     jargs = (jnp.asarray(cs.row_ptr), jnp.asarray(cs.edge_src), jnp.asarray(w0),
              xs, jnp.asarray(cs.part_id))
@@ -499,15 +534,18 @@ SOFTMAX_CASES = [("hub3", "coo"), ("hub3", "csr"), ("empty_partition", "coo"),
                  ("empty_partition", "csr"), ("dead_score", "coo")]
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("case,layout", SOFTMAX_CASES,
                          ids=[f"{c}-{l}" for c, l in SOFTMAX_CASES])
-def test_segment_softmax_walks_match_reference_and_pallas(case, layout, rng):
+def test_segment_softmax_walks_match_reference_and_pallas(case, layout, form,
+                                                          rng):
     """Both plain versions of the port (the plan walk, the edge list) on
     per-edge operands against repro's ref and Pallas kernel on theirs: a
     hub row over 3 chunks of parallel edges, partitions without a tile
     (Pallas leaves them unwritten, the port writes zeros), COO edges scored
     below the liveness cut of both repro versions (a row of only those is
-    0)."""
+    0).  In the flat form (the store, NaN in every row no edge names, and
+    global columns) both give the replica's bits."""
     g, ts = _softmax_graph(case, layout)
     F = 8
     x = rng.standard_normal((g.n_vertices, F)).astype(np.float32)
@@ -520,6 +558,10 @@ def test_segment_softmax_walks_match_reference_and_pallas(case, layout, rng):
         assert int(plan.split_ptr.diff().max()) >= 3
     for p_ in (None, plan):
         got = _port_softmax(ts, scores, xs, p_)
+        if form == "flat":
+            store, gcol = _flat_source(ts, x)
+            flat = _port_softmax(ts, scores, store, p_, col=gcol)
+            assert torch.equal(torch.from_numpy(flat), torch.from_numpy(got))
         assert np.isfinite(got).all() and not got[~live].any()
         np.testing.assert_allclose(got[live], np.asarray(want_ref)[live], **TOL)
         np.testing.assert_allclose(got[live], np.asarray(want_pallas)[live], **TOL)

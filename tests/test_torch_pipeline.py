@@ -140,6 +140,44 @@ def test_source_block_runs_once_per_vertex(name, n_layers, layout,
     assert _err(name, got, oracle, n_layers == 3) < _tol(name)
 
 
+@pytest.mark.parametrize("layout", ["csr", "coo"])
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+def test_flat_store_operands_give_the_per_slot_bits(name, layout):
+    """Where the source blocks run flat (V <= the padded source rows), the
+    plan-walking kernels read the flat store through global columns and
+    the edge blocks read stored values by global row: no (T, S_max, .)
+    replica is built (``runner.src_rows_replicated`` 0), but the COO
+    SpMM's operand, T x S_max rows of each bucket a layer.  The per-slot
+    path builds a replica of each value its source block computes, T x
+    S_max rows a layer (gcn's transform; gat's source score, while h,
+    stored by the dst block, stays flat), and both paths give the same
+    bits."""
+    from repro_torch import spans
+    from repro_torch.convert import to_device
+
+    g, _, ttr, params, inputs = _setup(name, 2, V=300, E=2000)
+    tiles, ro = ttiling.build_tiles(g, 8, 8, n_buckets=2, layout=layout)
+    runner = tpipeline.PipelinedRunner(tcompiler.compile_gnn(ttr), ro.graph,
+                                       tiles, reordering=ro, device="cpu")
+    *operands, (padded, _) = runner.bind(tiles, ro)
+    assert g.n_vertices <= padded
+    spans.enable()
+    try:
+        flat = runner(inputs, params)[0]
+        c_flat = spans.export()["counters"]
+        spans.enable()
+        args = ({k: to_device(v, runner.device) for k, v in d.items()}
+                for d in (inputs, params))
+        per_slot = runner._run(*args, *operands, False)[0]
+        c_slot = spans.export()["counters"]
+    finally:
+        spans.disable()
+    assert torch.equal(flat, per_slot)
+    coo_spmm = name == "gcn" and layout == "coo"
+    assert c_flat["runner.src_rows_replicated"] == (2 * padded if coo_spmm else 0)
+    assert c_slot["runner.src_rows_replicated"] == 2 * padded
+
+
 def _layer_by_layer_oracle(name, n_layers, g, inputs, params):
     """Chain n_layers SINGLE-layer whole-graph references of `repro`: layer
     l's output becomes layer l+1's input, per-layer params stripped of
