@@ -98,11 +98,11 @@ Phases, each printing one JSON line or more:
    ``BF16_MODEL_MULTIPLE`` x the reference's own bf16 error there
    (``BF16_REF_ERR``, from ``tools/bf16_drift.py``) + the fp32 limit, and
    the port's bf16-vs-fp32 forward error within that multiple of it;
-8. tiled: ``run_tiled`` (the interpreter engine) on phase 4's batch padded
-   by the server's ``ShapeRegistry`` (40,000 V), tiled as served (COO) and
-   by ``grid_tile(64, 64, layout="csr")``, 2-layer gcn and gat at width
-   128, kernel dispatch on and off, each pass twice (first and warm
-   seconds), against ``run_reference``;
+8. tiled: ``run_tiled`` (one call of the tile interpreter) on phase 4's
+   batch padded by the server's ``ShapeRegistry`` (40,000 V), tiled as
+   served (COO) and by ``grid_tile(64, 64, layout="csr")``, 2-layer gcn
+   and gat at width 128, kernel dispatch on and off, each pass twice
+   (first and warm seconds), against ``run_reference``;
 9. async serving: ``AsyncInferenceServer`` with 2-layer gcn and gat
    (``max_batch=16``, warmed on the class), 64 single-graph requests of
    the class to each model with a 2 s deadline; the ``ServeMetrics``

@@ -1,10 +1,11 @@
 """Tiled execution of a ScheduledProgram in PyTorch (port of
-``repro.core.pipeline``): :class:`PipelinedRunner` on one device and
-:class:`ShardedRunner` over a mesh of shards.
-
-Like the reference engine, :class:`PipelinedRunner` is an *interpreter* of
-the :class:`~repro_torch.core.schedule.ScheduledProgram` — it derives no
-levels or roles of its own.  Per phase:
+``repro.core.pipeline``): one interpreter of the
+:class:`~repro_torch.core.schedule.ScheduledProgram` (``_Interpreter``),
+which derives no levels or roles of its own, with three entry points:
+:class:`PipelinedRunner` on one device, :class:`ShardedRunner` over a mesh
+of shards (one interpreter a shard), and
+:func:`~repro_torch.core.executor.run_tiled`, one call of a
+:class:`PipelinedRunner` over a tile set.  Per phase:
 
 * the destination block runs vectorized over partitions,
 * gather blocks tagged ``pallas_spmm`` / ``pallas_spmm_weighted`` launch the
@@ -126,8 +127,7 @@ def _check_reorder_mode(expected: str, reordering) -> None:
 
 
 # ---- kernel operands and dispatch of a tile batch ---------------------------
-# Both tiled engines call these: PipelinedRunner once per bind (per bucket),
-# executor.run_tiled once per run (the whole tile set).
+# Both runners build the operands at bind, once a batch.
 
 def tile_const(ts: TileSet, n_parts: int, device) -> Dict[str, Array]:
     """Kernel metadata for one tile batch: int32 partition ids, their
@@ -258,40 +258,62 @@ def kernel_gather(kernel: str, layout: str, kc: Dict[str, Array],
     return torch.where(kc["pmask"][:, None, None], out, 0.0)
 
 
-def _with_dst(ta: Dict[str, Array], V: int, pid: str,
-              kc: Dict[str, Array]) -> Dict[str, Array]:
-    """Tile operands plus, for every (T, E) edge slot, its global
-    destination row (padded slots clamped to V - 1) and global source row
-    (``src_gid``: the batch's ``kc["gcol"]``, made at bind), and (T, 1)
-    tile and padded-layout partition (``ta[pid]``) indices for batched
-    gathers."""
-    xs = dict(ta)
-    xs["dst_global"] = (ta["part_start"][ta["part_id"]][:, None]
-                        + ta["edge_dst"]).clamp(max=V - 1)
-    xs["src_gid"] = kc["gcol"]
-    xs["tile"] = torch.arange(ta["part_id"].shape[0],
-                              device=ta["part_id"].device)[:, None]
-    xs["edge_part"] = ta[pid][:, None]
+def _edge_operands(ta: Dict[str, Array], pid: str, gcol: Array, V: int,
+                   real: bool) -> Dict[str, Array]:
+    """A batch's operands for an edge block, from its int64 tile arrays
+    ``ta`` and its (T, E) global columns ``gcol`` (:func:`_global_col`):
+    the tile arrays plus, for each edge, its global destination row
+    ``dst_global``, global source row ``src_gid``, tile ``tile`` and
+    padded-layout partition ``edge_part`` (``ta[pid]``).
+
+    ``real=False`` keeps every (T, E) slot, with (T, 1) tile and partition
+    indices for batched gathers and padded destinations clamped to V - 1.
+    ``real=True`` keeps the real slots only, as flat (N,) vectors in (tile,
+    slot) order; the listing syncs.  An edge block evaluated on them
+    computes nothing on padded slots, whose values (read from rows the slot
+    does not belong to) could be non-finite and would turn a zero cotangent
+    into NaN."""
+    if real:
+        E = ta["edge_src"].shape[1]
+        emask = (torch.arange(E, device=gcol.device)[None, :]
+                 < ta["n_edge"][:, None])
+        tile, slot = emask.nonzero(as_tuple=True)
+        xs = {k: ta[k][tile, slot] for k in ("edge_src", "edge_dst", "edge_gid")}
+        xs["src_ids"] = ta["src_ids"]
+        xs["src_gid"] = gcol[tile, slot].long()     # int64, as the tile arrays
+        xs["tile"] = by_tile = tile
+    else:
+        xs = dict(ta, src_gid=gcol)
+        xs["tile"] = torch.arange(gcol.shape[0], device=gcol.device)[:, None]
+        by_tile = slice(None), None     # (T,) per-tile arrays as (T, 1) views
+    xs["edge_part"] = ta[pid][by_tile]
+    dst = ta["part_start"][ta["part_id"]][by_tile] + xs["edge_dst"]
+    xs["dst_global"] = dst if real else dst.clamp(max=V - 1)
     return xs
 
 
-def _real_edges(ta: Dict[str, Array], pid: str) -> Dict[str, Array]:
-    """The operands :func:`_with_dst` gives, for the real edge slots only,
-    as flat (N,) vectors in (tile, slot) order.  An edge block evaluated on
-    them computes nothing on padded slots, whose values (read from rows the
-    slot does not belong to) could be non-finite and would turn a zero
-    cotangent into NaN."""
-    E = ta["edge_src"].shape[1]
-    emask = (torch.arange(E, device=ta["n_edge"].device)[None, :]
-             < ta["n_edge"][:, None])
-    tile, slot = emask.nonzero(as_tuple=True)
-    xs = {k: ta[k][tile, slot] for k in ("edge_src", "edge_dst", "edge_gid")}
-    xs["src_ids"] = ta["src_ids"]
-    xs["src_gid"] = ta["src_ids"][tile, xs["edge_src"]]
-    xs["tile"] = tile
-    xs["edge_part"] = ta[pid][tile]
-    xs["dst_global"] = ta["part_start"][ta["part_id"][tile]] + xs["edge_dst"]
-    return xs
+def _scan_edges(sp: S.ScheduledProgram, batches, pid: str,
+                V: int) -> Tuple[Dict[str, Array], ...]:
+    """Each batch's real edges (:func:`_edge_operands`), listed at bind
+    for the scan gathers; none where the program has no scan gather.  The
+    global columns are the batch's kernel operands' where it has them."""
+    if not any(ph.scan_gathers() for ph in sp.phases):
+        return ()
+    return tuple(_edge_operands(ta, pid, kc["gcol"] if "gcol" in kc
+                                else _global_col(ta), V, real=True)
+                 for ta, kc in batches)
+
+
+def _slots_to_vertices(V: int, *writes: Tuple[Array, Array]) -> Array:
+    """The (V, F) vertex store of partition-slot rows: each ``(ids, rows)``
+    pair scatters its (N, F) rows to the vertex ids (N,), later pairs over
+    earlier ones, into a zeroed (V + 1, F) buffer whose sentinel row V,
+    where invalid slots land, is dropped.  A vertex no slot names reads
+    zero."""
+    buf = writes[0][1].new_zeros((V + 1, writes[0][1].shape[-1]))
+    for ids, rows in writes:
+        buf[ids] = rows
+    return buf[:V]
 
 
 # ---- scan-gather accumulator semantics -------------------------------------
@@ -354,14 +376,13 @@ class _Interpreter:
 
     def __init__(self, sp: S.ScheduledProgram, params: Dict,
                  vstore: Dict[int, Array], estore: Dict[int, Array],
-                 n_vertices: int, device, *, pid: str = "part_id",
-                 pending=frozenset(), count_src_rows: bool = False,
-                 real: Optional[Sequence[Dict[str, Array]]] = None):
+                 n_vertices: int, device, *,
+                 real: Sequence[Dict[str, Array]], pid: str = "part_id",
+                 pending=frozenset(), count_src_rows: bool = False):
         self.sp = sp
-        # each batch's real edges (:func:`_real_edges`), given from bind or
-        # listed at first use; copied, since a run keeps its plans in them
-        self._real: Dict[int, Dict[str, Array]] = dict(
-            enumerate(dict(xs) for xs in real or ()))
+        # each batch's real edges (:func:`_scan_edges`, listed at bind);
+        # copied, since a run keeps its plans in them
+        self._real = [dict(xs) for xs in real]
         self.count_src_rows = count_src_rows
         self.params = params
         self.vstore = vstore
@@ -417,8 +438,7 @@ class _Interpreter:
 
     def edge_env(self, nodes, xs, senv):
         """Edge-block evaluation over every tile of ``xs`` at once: over
-        its (T, E) slots (:func:`_with_dst`) or its real edges
-        (:func:`_real_edges`)."""
+        its (T, E) slots or its real edges (:func:`_edge_operands`)."""
         eenv: Dict[int, Array] = {}
         # real edges' source rows of a stored value, gathered only when a
         # consumer other than the edge GEMM (which reads them in place)
@@ -515,7 +535,7 @@ class _Interpreter:
                 # per-edge scores and the source operand h of the
                 # unbucketed batch
                 ta0, kc0 = softmax
-                xs0 = _with_dst(ta0, V, self.pid, kc0)
+                xs0 = _edge_operands(ta0, self.pid, kc0["gcol"], V, real=False)
                 senv = self.eval_source(xs0["src_ids"], phase.src.nodes)
                 src = self.source_operand(senv, g.src_value_id, xs0["src_ids"],
                                           kc0, True)
@@ -531,8 +551,8 @@ class _Interpreter:
                 src = self.source_operand(senv, g.src_value_id, ta["src_ids"],
                                           kc, layout == "csr")
                 w = (None if g.kernel == S.KERNEL_SPMM else
-                     self.edge_values(g, g.weight_id,
-                                      _with_dst(ta, V, self.pid, kc), senv))
+                     self.edge_values(g, g.weight_id, _edge_operands(
+                         ta, self.pid, kc["gcol"], V, real=False), senv))
                 total += kernel_gather(g.kernel, layout, kc, ta, src, w,
                                        n_parts, dmax)
             done(g, total)
@@ -543,10 +563,7 @@ class _Interpreter:
         scan_gathers = phase.scan_gathers()
         if scan_gathers:
             acc = _init_gather_acc(scan_gathers, n_parts * dmax, dev)
-            for bi, (ta, _) in enumerate(batches):
-                if bi not in self._real:
-                    self._real[bi] = _real_edges(ta, self.pid)
-                xs = self._real[bi]
+            for xs in self._real:
                 senv = self.eval_source(xs["src_ids"], phase.src.nodes)
                 _, elookup = self.edge_env(phase.edge.nodes, xs, senv)
                 dest = xs["edge_part"] * dmax + xs["edge_dst"]
@@ -661,9 +678,8 @@ class PipelinedRunner:
             ran = ran + [st]
         rows = (sum(b.src_ids.size for b in ran),
                 sum(int(b.n_src.sum()) for b in ran))
-        # the scan gathers' real edges, listed here once (the listing syncs)
-        reals = (tuple(_real_edges(ta, "part_id") for ta in tas)
-                 if any(ph.scan_gathers() for ph in self.sp.phases) else None)
+        reals = _scan_edges(self.sp, zip(tas, kcs), "part_id",
+                            self.graph.n_vertices)
         return (tas, kcs, ta0, kc0, _perm_operand(reordering, self.device),
                 reals, rows)
 
@@ -740,8 +756,8 @@ class PipelinedRunner:
             for gb in ph.gathers:
                 if gb.src_value_id is not None:
                     tile_side_reads.add(gb.src_value_id)
-        it = _Interpreter(sp, params, vstore, estore, V, dev,
-                          count_src_rows=True, real=reals)
+        it = _Interpreter(sp, params, vstore, estore, V, dev, real=reals,
+                          count_src_rows=True)
         batches = list(zip(tas, kcs))
 
         def publish_gather(recv_id, padded_val):
@@ -750,10 +766,9 @@ class PipelinedRunner:
 
         def unpad(val):
             """(P, Dmax, d) partition-padded -> (V, d) vertex store."""
-            flat = torch.where(self._pad_valid, val, 0.0).reshape(P * dmax, -1)
-            buf = flat.new_zeros((V + 1, flat.shape[-1]))
-            buf[self._pad_ids.reshape(-1)] = flat  # invalid rows -> sentinel V
-            return buf[:V]
+            return _slots_to_vertices(V, (
+                self._pad_ids.reshape(-1),
+                torch.where(self._pad_valid, val, 0.0).reshape(P * dmax, -1)))
 
         for phase in sp.phases:
             # ---- destination block (vectorized over partitions; gather
@@ -801,6 +816,13 @@ def _quantize_cap(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def _cap(counts: Sequence[int], quantize: bool) -> int:
+    """The capacity that holds the largest of the per-shard ``counts`` (at
+    least 1), power-of-two quantized under ``quantize``."""
+    cap = max(1, max(counts))
+    return _quantize_cap(cap) if quantize else cap
+
+
 def _shard_tile_counts(tiles, plan: ShardPlan) -> List[List[int]]:
     """Per bucket, per shard: number of real (n_edge > 0) tiles assigned."""
     buckets: List[TileSet] = (list(tiles.buckets)
@@ -818,19 +840,12 @@ def _source_tileset(tiles) -> TileSet:
     return tiles.source if isinstance(tiles, BucketedTileSet) else tiles
 
 
-def _shard_real_counts(ts: TileSet, plan: ShardPlan) -> List[int]:
-    shard = plan.shard_of_part[ts.part_id]
-    real = ts.n_edge > 0
-    return [int(np.sum(real & (shard == k))) for k in range(plan.n_shards)]
-
-
 def _exchange_cap(tiles, plan: ShardPlan, quantize_tile_cap: bool) -> int:
     """Static send-buffer capacity of the restricted boundary exchange:
     the largest per-shard send set (rows a shard owns that remote shards'
     gather blocks read), power-of-two quantized under serving's cap
     quantization so small per-request variance shares one compiled shape."""
-    cap = max(1, exchange_sets(tiles, plan).max_send)
-    return _quantize_cap(cap) if quantize_tile_cap else cap
+    return _cap([exchange_sets(tiles, plan).max_send], quantize_tile_cap)
 
 
 def shard_layout_signature(tiles, n_devices: int, mode: str = "cost",
@@ -852,13 +867,11 @@ def shard_layout_signature(tiles, n_devices: int, mode: str = "cost",
     (:func:`_exchange_cap`); ``model_axis`` names the 2-D mesh's feature
     axis width — a different feature split never aliases."""
     plan = plan_shards(tiles, n_devices, mode=mode)
-    caps = []
-    for counts in _shard_tile_counts(tiles, plan):
-        cap = max(1, max(counts))
-        caps.append(_quantize_cap(cap) if quantize_tile_cap else cap)
+    caps = [_cap(counts, quantize_tile_cap)
+            for counts in _shard_tile_counts(tiles, plan)]
     if kernel_dispatch and S.KERNEL_SEGMENT_SOFTMAX in kernels:
-        cap0 = max(1, max(_shard_real_counts(_source_tileset(tiles), plan)))
-        caps.append(_quantize_cap(cap0) if quantize_tile_cap else cap0)
+        caps.append(_cap(_shard_tile_counts(_source_tileset(tiles), plan)[0],
+                         quantize_tile_cap))
     if n_devices > 1:
         caps.append(_exchange_cap(tiles, plan, quantize_tile_cap))
     return ("shardlayout", n_devices, mode, int(model_axis),
@@ -908,7 +921,6 @@ def _shard_layout(tiles, plan: ShardPlan, quantize_tile_cap: bool,
                               if isinstance(tiles, BucketedTileSet) else [tiles])
     K, P_loc = plan.n_shards, plan.n_local_parts
     dmax = int(tiles.part_size.max())
-    counts = _shard_tile_counts(tiles, plan)
 
     def shard_stack(b: TileSet, cap: int) -> Dict:
         shard = plan.shard_of_part[b.part_id]
@@ -942,23 +954,16 @@ def _shard_layout(tiles, plan: ShardPlan, quantize_tile_cap: bool,
         ops["pmask"] = pmask
         return ops
 
-    bucket_ops = []
-    caps = []
-    for b, cnts in zip(buckets, counts):
-        cap = max(1, max(cnts))
-        if quantize_tile_cap:
-            cap = _quantize_cap(cap)
-        caps.append(cap)
-        bucket_ops.append(shard_stack(b, cap))
+    caps = [_cap(counts, quantize_tile_cap)
+            for counts in _shard_tile_counts(tiles, plan)]
+    bucket_ops = [shard_stack(b, cap) for b, cap in zip(buckets, caps)]
 
     pad_ids = _shard_partition_ids(plan, tiles.part_start, tiles.part_size,
                                    dmax, tiles.n_vertices)
     shard_ops = {"pad_ids": pad_ids, "buckets": bucket_ops}
     if S.KERNEL_SEGMENT_SOFTMAX in kernels:
         st = _source_tileset(tiles)
-        cap0 = max(1, max(_shard_real_counts(st, plan)))
-        if quantize_tile_cap:
-            cap0 = _quantize_cap(cap0)
+        cap0 = _cap(_shard_tile_counts(st, plan)[0], quantize_tile_cap)
         caps.append(cap0)
         shard_ops["softmax"] = shard_stack(st, cap0)
     repl_ops = {"full_pad_ids": pad_ids.reshape(-1).copy()}
@@ -969,9 +974,7 @@ def _shard_layout(tiles, plan: ShardPlan, quantize_tile_cap: bool,
         # (sentinel n_vertices rows are dropped).  Interior boundary
         # publishes all-gather only this compacted buffer.
         ex = exchange_sets(tiles, plan)
-        ecap = max(1, ex.max_send)
-        if quantize_tile_cap:
-            ecap = _quantize_cap(ecap)
+        ecap = _cap([ex.max_send], quantize_tile_cap)
         caps.append(ecap)
         part_start = np.asarray(tiles.part_start)
         send_slots = np.zeros((K, ecap), np.int32)
@@ -1208,8 +1211,9 @@ class ShardedRunner:
                          reordering) -> List[Dict]:
         """Shard ``k``'s operands on its device: the (P_loc, Dmax) vertex
         ids of its slots, per bucket the int64 tile arrays and the kernel
-        operands of its slice, the softmax batch, its send slots and the
-        replicated tables (one copy a device)."""
+        operands of its slice, the softmax batch, the scan gathers' real
+        edges, its send slots and the replicated tables (one copy a
+        device)."""
         buckets: List[TileSet] = (list(tiles.buckets)
                                   if isinstance(tiles, BucketedTileSet)
                                   else [tiles])
@@ -1260,6 +1264,8 @@ class ShardedRunner:
                     softmax_const(_shard_tileset(_source_tileset(tiles), stk,
                                                  k, plan), ta, P_loc, dmax,
                                   dev), stk, k, dev))
+            sops["real"] = _scan_edges(self.sp, sops["buckets"], "local_pid",
+                                       self.graph.n_vertices)
             out.append(sops)
         return out
 
@@ -1314,7 +1320,8 @@ class ShardedRunner:
                 sp, params,
                 {nid: inputs[name] for nid, name in sp.vertex_inputs},
                 {nid: inputs[name] for nid, name in sp.edge_inputs},
-                V, devs[k], pid="local_pid", pending=queued))
+                V, devs[k], real=o["real"], pid="local_pid",
+                pending=queued))
 
         def queue(vals: List[Dict[int, Array]]) -> None:
             """Queue one drain (the reference's ``publish`` call): interior
@@ -1358,18 +1365,19 @@ class ShardedRunner:
                     flat = gathered[k][:, off:off + rows * width].reshape(
                         K * rows, width)
                     off += rows * width
-                    store = flat.new_zeros((V + 1, width))
                     if restricted:
-                        store[ops[k]["send_ids"]] = flat
                         # own partitions' rows never ride the exchange:
-                        # local scatter (invalid slots -> sentinel row V)
-                        store[ops[k]["pad_ids"].reshape(-1)] = \
-                            buf.reshape(P_loc * dmax, -1)
+                        # written locally, after the received ones
+                        store = _slots_to_vertices(
+                            V, (ops[k]["send_ids"], flat),
+                            (ops[k]["pad_ids"].reshape(-1),
+                             buf.reshape(P_loc * dmax, -1)))
                     else:
-                        store[ops[k]["full_pad_ids"]] = flat
+                        store = _slots_to_vertices(
+                            V, (ops[k]["full_pad_ids"], flat))
                     col = 0
                     for nid, v in zip(ids, vals[k]):
-                        its[k].vstore[nid] = store[:V, col:col + v.shape[-1]]
+                        its[k].vstore[nid] = store[:, col:col + v.shape[-1]]
                         col += v.shape[-1]
             pending.clear()
             queued.clear()

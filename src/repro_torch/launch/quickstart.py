@@ -6,10 +6,11 @@ counterpart of the reference's ``examples/quickstart.py``.
 Traces a 2-layer GCN written against the whole-graph programming model
 (one trace spanning both layers), compiles it to the graph-native IR
 (cross-layer CSE and the E2V optimization included), tiles the graph
-(sparse tiling with degree-sort reordering, ``build_tiles``), runs it three
-ways on the device — the whole-graph oracle ``run_reference``, the phased
-tile interpreter ``run_tiled`` and the pipelined engine ``run_pipelined``,
-held against the oracle at 5e-4 x max(1, max |oracle|) — and runs the
+(sparse tiling with degree-sort reordering, ``build_tiles``), runs it on
+the device through the whole-graph oracle ``run_reference`` and through
+the tile interpreter's two one-call front ends, ``run_tiled`` and
+``run_pipelined``, held against the oracle at 5e-4 x max(1, max |oracle|)
+— and runs the
 copied cycle-level simulator for the ZIPPER ASIC and a TPU-v5e-like
 config, barrier against inter-layer pipelined schedule.  The simulator's
 cycles and milliseconds are modelled by its cost model, not measured on
@@ -59,7 +60,7 @@ def main(argv=None) -> dict:
     print(f"tiles: {tiles.n_tiles} (S_max={tiles.s_max}, E_max={tiles.e_max}); "
           f"src loads {tiles.src_vertex_loads()} vs regular {regular}")
 
-    # 3. execute three ways on the device, against the oracle
+    # 3. execute on the device: the oracle and the tile interpreter
     params = models.init_params(tr)
     inputs = {k: (r.permute_vertex_features(v) if v.shape[0] == g0.n_vertices else v)
               for k, v in models.init_inputs(tr, g0).items()}

@@ -199,8 +199,9 @@ def _layer_by_layer_oracle(name, n_layers, g, inputs, params):
 @pytest.mark.parametrize("n_layers", [2, 3])
 @pytest.mark.parametrize("name", MODELS)
 def test_stacked_engines_match_layer_by_layer_oracle(name, n_layers):
-    """Both tiled engines of the port (run_tiled on the tile set, the
-    runner on its size buckets), with and without kernel dispatch, against
+    """The port's tile interpreter through two entry points (run_tiled on
+    the tile set, the runner on its size buckets), with and without kernel
+    dispatch, against
     chained single-layer references, as reference
     `tests/test_multilayer.py:112` holds its engines."""
     g = jgraphs.random_graph(150, 600, seed=3, model="powerlaw", n_edge_types=3)
