@@ -51,7 +51,9 @@ blocks' vertex ops ran over (``runner.src_rows_computed``), the graph's
 vertices and edges (``runner.vertices``, ``runner.edges``), the rows of
 the (T, S_max, F) source replicas it built for kernel operands and edge
 blocks (``runner.src_rows_replicated``, 0 where none is built), and the
-rows its edge GEMMs ran over (``runner.edge_gemm_rows``).  Around the
+rows its edge GEMMs ran over (``runner.edge_gemm_rows``) and the rows
+its drains moved from partition layout to the vertex store
+(``runner.unpad_rows``: V an unpad).  Around the
 relation grouping it records ``runner.rel_plan``; for a program with an
 edge GEMM it counts the graph's relations that have an edge
 (``runner.rel_groups``, from the graph's ``edge_type`` on the host).
@@ -93,6 +95,22 @@ def _padded_partition_ids(tiles) -> Tuple[np.ndarray, int]:
         n = int(tiles.part_size[p])
         ids[p, :n] = tiles.part_start[p] + np.arange(n, dtype=np.int32)
     return ids, dmax
+
+
+def _vertex_slots(tiles, V: int, dmax: int) -> np.ndarray:
+    """(V,) int64: each vertex's row ``p * Dmax + v - part_start[p]`` in the
+    flattened (P * Dmax) partition layout.  Refuses a tile set whose
+    partitions are not contiguous vertex ranges covering [0, V) once, in
+    order (every tiler's are): a vertex no partition holds would have no
+    destination row to compute it."""
+    start = np.asarray(tiles.part_start, np.int64)
+    size = np.asarray(tiles.part_size, np.int64)
+    if size.sum() != V or not np.array_equal(start, np.cumsum(size) - size):
+        raise ValueError(
+            f"the tile set's partitions do not cover the {V} vertices once, "
+            f"in order: part_size sums to {int(size.sum())}, and part_start "
+            "must be its prefix sum")
+    return np.repeat(np.arange(size.size) * dmax - start, size) + np.arange(V)
 
 
 def _upload(arr, device, dtype=None) -> Array:
@@ -616,9 +634,12 @@ class PipelinedRunner:
                              else reordering.mode)
         part_ids_pad, self.dmax = _padded_partition_ids(tiles)
         V = graph.n_vertices
-        self._pad_ids = torch.as_tensor(part_ids_pad, device=self.device).long()
-        self._pad_valid = (self._pad_ids < V)[..., None]      # (P, Dmax, 1)
-        self._safe_pad_ids = self._pad_ids.clamp(max=V - 1)
+        self._safe_pad_ids = torch.as_tensor(
+            part_ids_pad, device=self.device).long().clamp(max=V - 1)
+        # the signature holds part_start / part_size, so every tile set
+        # bind accepts has this map
+        self._slot_of = torch.as_tensor(_vertex_slots(tiles, V, self.dmax),
+                                        device=self.device)
         self._kernels = {g.kernel for ph in self.sp.phases for g in ph.gathers}
         # the graph's relations that have an edge, where an edge GEMM runs
         typed = graph.edge_type is not None and any(
@@ -719,6 +740,13 @@ class PipelinedRunner:
         (no rebuild: operand shapes are identical by contract)."""
         return self(inputs, params, operands=self.bind(tiles, reordering))
 
+    def unpad(self, val: Array) -> Array:
+        """(P, Dmax, d) partition-padded -> (V, d) vertex store: one row
+        gather through the vertex-to-slot map, which never reads an invalid
+        slot (``runner.unpad_rows``: V a gather)."""
+        spans.count("runner.unpad_rows", self._slot_of.numel())
+        return val.reshape(-1, val.shape[-1]).index_select(0, self._slot_of)
+
     def _run(self, inputs, params, tas, kcs, ta0, kc0, perm, reals,
              flat: bool) -> List[Array]:
         """One pass.  ``flat``: evaluate each phase's source block once over
@@ -744,7 +772,7 @@ class PipelinedRunner:
         # ---- gather-drain fusion across phase/layer boundaries -------------
         # A gather result lands in padded (P, Dmax, F) partition layout.  The
         # next phase's dst block reads it in exactly that layout, so keeping
-        # it in ``pstore`` skips the unpad-scatter + re-gather round trip.
+        # it in ``pstore`` skips the unpad + re-gather round trip.
         # Only values the tile-side paths read — src recompute, edge
         # recvSrc/recvDst, kernel X operands, outputs — are published to the
         # flat (V, F) vertex store.
@@ -762,13 +790,7 @@ class PipelinedRunner:
 
         def publish_gather(recv_id, padded_val):
             if recv_id in tile_side_reads:
-                vstore[recv_id] = unpad(padded_val)
-
-        def unpad(val):
-            """(P, Dmax, d) partition-padded -> (V, d) vertex store."""
-            return _slots_to_vertices(V, (
-                self._pad_ids.reshape(-1),
-                torch.where(self._pad_valid, val, 0.0).reshape(P * dmax, -1)))
+                vstore[recv_id] = self.unpad(padded_val)
 
         for phase in sp.phases:
             # ---- destination block (vectorized over partitions; gather
@@ -778,7 +800,7 @@ class PipelinedRunner:
                 denv = it.eval_vertex(self._safe_pad_ids, phase.dst.nodes,
                                       padded=True)
                 for nid in phase.dst.store_ids:
-                    vstore[nid] = unpad(denv[nid])
+                    vstore[nid] = self.unpad(denv[nid])
             if phase.has_tile_work:
                 if flat:
                     # nodes an earlier phase stored are not recomputed, and

@@ -370,3 +370,109 @@ def test_entry_points_run_on_cuda_unless_told_otherwise():
         tpipeline.PipelinedRunner(c, g, ts)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         texecutor.run_reference(ttr, g, inputs, params)
+
+
+def _unpad_case(tiler):
+    """(graph, tiles, reordering) of one tiler over a 64-vertex graph that
+    every tiler cuts into partitions of unequal size, so that the padded
+    (P, Dmax) layout has invalid slots."""
+    from repro_torch.serve.signature import ShapeRegistry
+    g = _setup("gcn", 2)[0]
+    if tiler in ("coo", "csr"):
+        return g, ttiling.grid_tile(g, 3, 3, layout=tiler), None
+    if tiler == "serving":
+        padded, tiles, _, ro = ShapeRegistry().canonical("k", g, grid=(3, 3))
+        return padded, tiles, ro
+    if tiler == "bucketed":
+        tiles, ro = ttiling.build_tiles(g, 3, 3, n_buckets=2, layout="csr")
+    else:
+        tiles, ro = ttiling.build_tiles(g, 3, 3, reorder="degree", layout="csr")
+    return ro.graph, tiles, ro
+
+
+@pytest.mark.parametrize("width", [128, 1])
+@pytest.mark.parametrize("tiler", ["coo", "csr", "bucketed", "degree",
+                                   "serving"])
+def test_unpad_gathers_the_bits_the_slot_scatter_gave(tiler, width):
+    """The runner's unpad, one row gather through its vertex-to-slot map,
+    gives bit for bit what the masked scatter of every padded slot gave
+    (``torch.where`` over the invalid slots, then ``_slots_to_vertices``),
+    and reads no invalid slot: NaN and inf planted in each of them reach
+    no row of the store."""
+    graph, tiles, ro = _unpad_case(tiler)
+    ttr = tmodels.trace_stacked("gcn", 2, DIM, DIM, DIM)
+    runner = tpipeline.PipelinedRunner(tcompiler.compile_gnn(ttr), graph,
+                                       tiles, reordering=ro, device="cpu")
+    V = graph.n_vertices
+    ids, dmax = tpipeline._padded_partition_ids(tiles)
+    ids = torch.as_tensor(ids).long()
+    valid = (ids < V)[..., None]
+    assert not valid.all()
+    P = ids.shape[0]
+    planted = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    planted = planted.repeat(P * dmax * width)[:P * dmax * width]
+    val = torch.where(valid, torch.randn(P, dmax, width,
+                                         generator=torch.Generator().manual_seed(0)),
+                      planted.view(P, dmax, width))
+    want = tpipeline._slots_to_vertices(V, (
+        ids.reshape(-1), torch.where(valid, val, 0.0).reshape(P * dmax, -1)))
+    got = runner.unpad(val)
+    assert got.shape == (V, width) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fault", ["gap", "overlap", "shifted"])
+def test_runner_refuses_partitions_that_miss_or_repeat_a_vertex(fault):
+    """A tile set whose partitions leave a vertex out (``gap``), name one
+    twice (``overlap``), or both at an unchanged total (``shifted``) is
+    refused when the runner is built: its unpad has no one slot a vertex."""
+    import dataclasses
+
+    g, _, ttr, _, _ = _setup("gcn", 2)
+    ts = ttiling.grid_tile(g, 3, 3)
+    start, size = ts.part_start.copy(), ts.part_size.copy()
+    start[1] += {"gap": 1, "overlap": -1, "shifted": 1}[fault]
+    size[1] += {"gap": -1, "overlap": 1, "shifted": 0}[fault]
+    bad = dataclasses.replace(ts, part_start=start, part_size=size)
+    c = tcompiler.compile_gnn(ttr)
+    tpipeline.PipelinedRunner(c, g, ts, device="cpu")
+    with pytest.raises(ValueError, match="do not cover"):
+        tpipeline.PipelinedRunner(c, g, bad, device="cpu")
+
+
+@pytest.mark.parametrize("name,unpads", [("gcn", 3), ("gat", 6), ("rgcn", 8)])
+def test_unpad_rows_count_v_a_gather(name, unpads):
+    """``runner.unpad_rows`` counts V for each unpad: a pass of the
+    whole-graph cells' 2-layer programs runs 3 (gcn), 6 (gat: four of
+    width 16 and the two width-1 scores) and 8 (rgcn)."""
+    from repro_torch import spans
+    from repro_torch.gnn import relational as RL
+
+    g, _, ttr, params, inputs = _setup(name if name != "rgcn" else "gcn", 2)
+    if name == "rgcn":
+        rel = np.random.default_rng(0).integers(0, 3, g.n_edges)
+        g, einp = RL.relational_graph(g.src, g.dst, rel, g.n_vertices, 6)
+        ttr = RL.trace_rgcn(2, DIM, DIM, DIM, 6)
+        gen = torch.Generator().manual_seed(0)
+        params = RL.combine_bases({
+            k: torch.randn(s, generator=gen)
+            for k, s in RL.basis_shapes(2, DIM, DIM, DIM, 6, 2).items()})
+        inputs = dict(einp, x=torch.randn(g.n_vertices, DIM, generator=gen))
+    tiles = ttiling.grid_tile(g, 3, 3, layout="csr")
+    runner = tpipeline.PipelinedRunner(tcompiler.compile_gnn(ttr), g, tiles,
+                                       device="cpu")
+    widths = []
+    unpad = runner.unpad
+    runner.unpad = lambda val: widths.append(val.shape[-1]) or unpad(val)
+    spans.enable()
+    try:
+        with torch.inference_mode():
+            for _ in range(2):
+                runner(inputs, params)
+        c = spans.export()["counters"]
+    finally:
+        spans.disable()
+    assert c["runner.unpad_rows"] == 2 * unpads * g.n_vertices
+    assert len(widths) == 2 * unpads
+    if name == "gat":
+        assert sorted(widths[:unpads]) == [1, 1] + [DIM] * 4
